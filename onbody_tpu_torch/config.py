@@ -89,11 +89,20 @@ def pair_backend(cfg: SolverConfig) -> str:
     return b
 
 
-def check_supported(cfg: SolverConfig) -> None:
-    """Raise NotImplementedError for keys whose paths are not ported."""
+def check_supported(cfg: SolverConfig, kernel=None) -> None:
+    """Raise NotImplementedError for keys whose paths are not ported.
+
+    With a kernel, cfg.core_func must be one of its cores (vort2d and
+    vortgrad3d: rm, exp; vort3d also v2, on the torch path only: the
+    CUDA bodies raise for it, item 9); grav3d ignores core_func, as the
+    reference does."""
     def no(what, item):
         raise NotImplementedError(f"{what} is not ported yet "
                                   f"(ROADMAP.md Queue 1 item {item})")
+    if kernel is not None and kernel.cores \
+            and cfg.core_func not in kernel.cores:
+        raise ValueError(f"core_func {cfg.core_func!r}: {kernel.name} "
+                         f"takes one of {kernel.cores}")
     if cfg.order < 0:
         no("order < 0 (pair-merge equivalents)", 11)
     if cfg.tree_mode not in ("median", "span"):

@@ -1,0 +1,87 @@
+// Regularized core functions of the vortex bodies, one struct per
+// core_func value; a body takes its core as a template parameter, so each
+// (body, core) pair is its own instantiation.
+//
+// The same branches as onbody_tpu/ops/core_funcs.py (and the port's copy,
+// ops/core_funcs.py), evaluated as selects over safe operands: the guards
+// keep the d2 = 0 self-interaction of a leaf against itself finite, and a
+// branch that is not selected never reaches the result.
+//
+// A per-source term that does not depend on the target is computed once
+// when the source block is staged (aux3), not per pair: sr^2 for RM,
+// corefac = 1/max(sr^3, TINY) for the exponential core. The 2D cores take
+// sr^2 and tr^2 (both cores need them).
+#pragma once
+
+namespace onbody {
+
+constexpr float kTiny = 1e-30f;
+
+// Rosenhead-Moore (CoreFunc2d.hpp:24-36, CoreFunc3d.hpp:27-41).
+struct CoreRm {
+  __device__ static float aux3(float sr) { return sr * sr; }
+
+  // (d^2 + sr^2)^-3/2
+  __device__ static float c3(float d2, float sr2) {
+    const float rinv = rsqrtf(d2 + sr2);
+    return rinv * rinv * rinv;
+  }
+
+  // r3 and bbb = -3 r3 / r2, the division as a product with rinv^2
+  __device__ static void c3g(float d2, float sr2, float& r3, float& bbb) {
+    const float rinv = rsqrtf(d2 + sr2);
+    const float rinv2 = rinv * rinv;
+    r3 = rinv2 * rinv;
+    bbb = -3.f * r3 * rinv2;
+  }
+
+  // 1/(d^2 + sr^2 + tr^2)
+  __device__ static float c2(float d2, float sr2, float tr2) {
+    return 1.f / ((d2 + sr2) + tr2);
+  }
+};
+
+// Compact exponential (CoreFunc2d.hpp:85-103, CoreFunc3d.hpp:136-177).
+struct CoreExp {
+  __device__ static float aux3(float sr) {
+    return 1.f / fmaxf(sr * sr * sr, kTiny);
+  }
+
+  __device__ static float c3(float d2, float corefac) {
+    const float dist = sqrtf(d2);
+    const float d3 = fmaxf(d2 * dist, kTiny);
+    const float ood3 = 1.f / d3;
+    const float reld3 = d3 * corefac;
+    const float mid = ood3 * (1.f - expf(-fminf(reld3, 87.f)));
+    const float out = reld3 > 16.f ? ood3 : mid;
+    return reld3 < 0.001f ? corefac : out;
+  }
+
+  __device__ static void c3g(float d2, float corefac, float& r3,
+                             float& bbb) {
+    const float dist = sqrtf(d2);
+    const float d3 = fmaxf(d2 * dist, kTiny);
+    const float reld3 = d3 * corefac;
+    const float dm3 = 1.f / d3;
+    const float dm2 = 1.f / fmaxf(d2, kTiny);
+    const float e = expf(-fminf(reld3, 87.f));
+    const float r3_mid = (1.f - e) * dm3;
+    const bool far = reld3 > 16.f;
+    const bool close = reld3 < 0.001f;
+    r3 = close ? corefac : (far ? dm3 : r3_mid);
+    bbb = close ? -1.5f * dist * corefac * corefac
+                : (far ? -3.f * dm3 * dm2
+                       : 3.f * (corefac * e - r3_mid) * dm2);
+  }
+
+  __device__ static float c2(float d2, float sr2, float tr2) {
+    const float ood2 = 1.f / (d2 + 1e-6f);
+    const float corefac = 1.f / fmaxf(sr2 + tr2, kTiny);
+    const float reld2 = corefac / ood2;
+    const float mid = ood2 * (1.f - expf(-reld2));
+    const float out = reld2 > 16.f ? ood2 : mid;
+    return reld2 < 0.001f ? corefac : out;
+  }
+};
+
+}  // namespace onbody

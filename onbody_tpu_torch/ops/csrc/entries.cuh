@@ -1,0 +1,33 @@
+// The plain C entry points of one (workload, core) instantiation:
+//   onbody_exec_<INST>     K1, the unpaired grouped executor (pairs.cuh)
+//   onbody_exec_t2_<INST>  K2, the sibling-paired executor (pairs.cuh)
+//   onbody_direct_<INST>   K4, the direct sum (direct.cuh)
+// Each returns cudaGetLastError() after its launch (0 on success); the
+// ctypes wrappers (ops/cuda_lib.py) raise on anything else.
+#pragma once
+
+#include "direct.cuh"
+#include "pairs.cuh"
+
+#define ONBODY_ENTRIES(INST, BODY)                                         \
+  extern "C" int onbody_exec_##INST(                                       \
+      const float* tgt_geo, const float* src_fm, float* out,               \
+      const int* run_tgt, const int* run_off, const int* pair_s,           \
+      int n_runs, int B, int C, int G, int od8, void* stream) {            \
+    return onbody::launch_exec<BODY, false>(tgt_geo, src_fm, out, run_tgt, \
+                                            run_off, pair_s, n_runs, B, C, \
+                                            G, od8, stream);               \
+  }                                                                        \
+  extern "C" int onbody_exec_t2_##INST(                                    \
+      const float* tgt_geo, const float* src_fm, float* out,               \
+      const int* run_tgt, const int* run_off, const int* pair_s,           \
+      int n_runs, int B, int C, int G, int od8, void* stream) {            \
+    return onbody::launch_exec<BODY, true>(tgt_geo, src_fm, out, run_tgt,  \
+                                           run_off, pair_s, n_runs, B, C,  \
+                                           G, od8, stream);                \
+  }                                                                        \
+  extern "C" int onbody_direct_##INST(const float* tgt, const float* src,  \
+                                      float* out, int M, int S,            \
+                                      void* stream) {                      \
+    return onbody::launch_direct<BODY>(tgt, src, out, M, S, stream);       \
+  }

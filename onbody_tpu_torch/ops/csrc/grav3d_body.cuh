@@ -1,5 +1,4 @@
-// grav3d per-pair body shared by the pair executors (pairs.cu) and the
-// direct sum (direct.cu).
+// grav3d per-pair body (see body.cuh for the contract).
 //
 // Replaces the tile body onbody_tpu/ops/kernels.py:_grav3d_tile_fm (with
 // _d2_fm "outer"). The reference factors the source sum into MXU
@@ -7,77 +6,61 @@
 // plain fp32 FMA work on the SM cores, so the body evaluates d = s - t
 // per pair directly (ongrav3d.cpp:44-58):
 //     w = m * rsqrt(|d|^2 + sr^2)^3,   acc += w * d.
-// One rsqrt (SFU) and ~17 FMA-class ops per pair: the executors are
-// bound by the SFU/FMA issue rate, not by memory, once a source block
-// sits in shared memory.
+// Per pair the arithmetic needs 12 FP32-pipe operations and 1 MUFU: 3 FADD
+// for d, 3 FFMA for |d|^2 + sr^2, 3 FMUL for m * rinv^3, 3 FFMA into the
+// sums, and the rsqrt. The kernels are bound by the SM's FP32 rate, not
+// by memory, once a source block sits in shared memory. (The compiler
+// issues more: chip_smoke.py prints the SASS counts beside these.)
+// Gravity hard-codes the RM denominator, so there is no core parameter.
 #pragma once
 
-struct Grav3dAcc {
-  float x, y, z;
+#include "body.cuh"
+
+namespace onbody {
+
+struct Grav3d {
+  // staged rows: x, y, z, sr^2, m (featurize already stores sr^2)
+  static constexpr int kRows = 5;
+  static constexpr int kOut = 3;
+  static constexpr int kUnroll = 4;
+  static constexpr int kUnroll2 = 2;
+
+  struct Tgt {
+    float x, y, z;
+  };
+  struct Src {
+    float x, y, z, sr2, m;
+  };
+
+  __device__ static Tgt load_tgt(const float* g, int64_t stride) {
+    return {g[0], g[stride], g[2 * stride]};
+  }
+
+  __device__ static void stage(const float* __restrict__ col,
+                               int64_t stride, float* sm, int sm_stride) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      sm[r * sm_stride] = __ldg(col + r * stride);
+    }
+  }
+
+  __device__ static Src load_src(const float* sm, int stride) {
+    return {sm[0], sm[stride], sm[2 * stride], sm[3 * stride],
+            sm[4 * stride]};
+  }
+
+  __device__ static void pair(const Src& s, const Tgt& t,
+                              float (&acc)[kOut]) {
+    const float dx = s.x - t.x;
+    const float dy = s.y - t.y;
+    const float dz = s.z - t.z;
+    const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, s.sr2)));
+    const float rinv = rsqrtf(r2);
+    const float w = s.m * rinv * rinv * rinv;
+    acc[0] = fmaf(w, dx, acc[0]);
+    acc[1] = fmaf(w, dy, acc[1]);
+    acc[2] = fmaf(w, dz, acc[2]);
+  }
 };
 
-__device__ __forceinline__ void grav3d_pair(float sx, float sy, float sz,
-                                            float sr2, float m, float tx,
-                                            float ty, float tz,
-                                            Grav3dAcc& acc) {
-  const float dx = sx - tx;
-  const float dy = sy - ty;
-  const float dz = sz - tz;
-  const float r2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, sr2)));
-  const float rinv = rsqrtf(r2);
-  const float w = m * rinv * rinv * rinv;
-  acc.x = fmaf(w, dx, acc.x);
-  acc.y = fmaf(w, dy, acc.y);
-  acc.z = fmaf(w, dz, acc.z);
-}
-
-// Rows of a source block staged in shared memory: x, y, z, sr^2, m (the
-// first five rows of the reference's feature-major block, ops/kernels.py
-// featurize), each `stride` floats apart.
-constexpr int kGravRows = 5;
-
-__device__ __forceinline__ void grav3d_add(Grav3dAcc& acc,
-                                           const Grav3dAcc& part) {
-  acc.x += part.x;
-  acc.y += part.y;
-  acc.z += part.z;
-}
-
-// Sum of the first n staged sources on one target. The block's sum is
-// kept in a local partial and added onto `acc` once, so long runs are
-// summed two-level (within a block, then across blocks) rather than in
-// one long fp32 chain.
-__device__ __forceinline__ void grav3d_block(const float* __restrict__ sm,
-                                             int stride, int n, float tx,
-                                             float ty, float tz,
-                                             Grav3dAcc& acc) {
-  Grav3dAcc part = {0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int q = 0; q < n; ++q) {
-    grav3d_pair(sm[q], sm[stride + q], sm[2 * stride + q],
-                sm[3 * stride + q], sm[4 * stride + q], tx, ty, tz, part);
-  }
-  grav3d_add(acc, part);
-}
-
-// The same on two targets at once: each staged source is read once from
-// shared memory and serves both (the sibling-paired executor).
-__device__ __forceinline__ void grav3d_block2(
-    const float* __restrict__ sm, int stride, int n, float tx0, float ty0,
-    float tz0, float tx1, float ty1, float tz1, Grav3dAcc& acc0,
-    Grav3dAcc& acc1) {
-  Grav3dAcc p0 = {0.f, 0.f, 0.f};
-  Grav3dAcc p1 = {0.f, 0.f, 0.f};
-#pragma unroll 2
-  for (int q = 0; q < n; ++q) {
-    const float sx = sm[q];
-    const float sy = sm[stride + q];
-    const float sz = sm[2 * stride + q];
-    const float sr2 = sm[3 * stride + q];
-    const float m = sm[4 * stride + q];
-    grav3d_pair(sx, sy, sz, sr2, m, tx0, ty0, tz0, p0);
-    grav3d_pair(sx, sy, sz, sr2, m, tx1, ty1, tz1, p1);
-  }
-  grav3d_add(acc0, p0);
-  grav3d_add(acc1, p1);
-}
+}  // namespace onbody

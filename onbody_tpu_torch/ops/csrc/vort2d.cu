@@ -1,0 +1,6 @@
+// K1, K2 and K4 with the vort2d body K5, for the RM and exp cores.
+#include "entries.cuh"
+#include "vort2d_body.cuh"
+
+ONBODY_ENTRIES(vort2d_rm, onbody::Vort2d<onbody::CoreRm>)
+ONBODY_ENTRIES(vort2d_exp, onbody::Vort2d<onbody::CoreExp>)

@@ -1,0 +1,65 @@
+// vort2d per-pair body, kernel K5 (see body.cuh for the contract).
+//
+// Replaces the tile body onbody_tpu/ops/kernels.py:_vort2d_tile_fm. The
+// reference folds the strength multiply into an MXU contraction over
+// premultiplied rows and recombines; here every pair is evaluated as the
+// reference scalar kernel writes it (onvort2d.cpp:44-57), d = t - s:
+//     w = ss * core_2d(|d|^2, sr, tr),   u -= w * dy,   v += w * dx.
+// vort2d is the one kernel that reads the target radius: tr sits in row
+// 2 (= pd) of the target column. With the RM core a pair needs 8
+// FP32-pipe operations and 1 MUFU: 2 FADD for d, 1 FADD for sr^2 + tr^2,
+// 2 FFMA for |d|^2 + that, 1 FMUL for ss * rcp, 2 FFMA into the sums, and
+// the reciprocal; the two pipes take the same time. The body writes 1/r2
+// as an IEEE division, which issues more than the one reciprocal.
+#pragma once
+
+#include "body.cuh"
+
+namespace onbody {
+
+template <class Core>
+struct Vort2d {
+  // staged rows: x, y, sr^2, ss
+  static constexpr int kRows = 4;
+  static constexpr int kOut = 2;
+  static constexpr int kUnroll = 4;
+  static constexpr int kUnroll2 = 2;
+
+  struct Tgt {
+    float x, y, tr2;
+  };
+  struct Src {
+    float x, y, sr2, ss;
+  };
+
+  __device__ static Tgt load_tgt(const float* g, int64_t stride) {
+    const float tr = g[2 * stride];
+    return {g[0], g[stride], tr * tr};
+  }
+
+  // fm rows x, y, sr, ss
+  __device__ static void stage(const float* __restrict__ col,
+                               int64_t stride, float* sm, int sm_stride) {
+    const float sr = __ldg(col + 2 * stride);
+    sm[0] = __ldg(col);
+    sm[sm_stride] = __ldg(col + stride);
+    sm[2 * sm_stride] = sr * sr;
+    sm[3 * sm_stride] = __ldg(col + 3 * stride);
+  }
+
+  __device__ static Src load_src(const float* sm, int stride) {
+    return {sm[0], sm[stride], sm[2 * stride], sm[3 * stride]};
+  }
+
+  __device__ static void pair(const Src& s, const Tgt& t,
+                              float (&acc)[kOut]) {
+    const float dx = t.x - s.x;
+    const float dy = t.y - s.y;
+    const float d2 = fmaf(dy, dy, dx * dx);
+    const float w = s.ss * Core::c2(d2, s.sr2, t.tr2);
+    acc[0] = fmaf(-w, dy, acc[0]);
+    acc[1] = fmaf(w, dx, acc[1]);
+  }
+};
+
+}  // namespace onbody

@@ -1,0 +1,6 @@
+// K1, K2 and K4 with the vortgrad3d body K7, for the RM and exp cores.
+#include "entries.cuh"
+#include "vortgrad3d_body.cuh"
+
+ONBODY_ENTRIES(vortgrad3d_rm, onbody::Vortgrad3d<onbody::CoreRm>)
+ONBODY_ENTRIES(vortgrad3d_exp, onbody::Vortgrad3d<onbody::CoreExp>)

@@ -1,40 +1,72 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The sources in `csrc/` have a plain C interface. They are compiled with
-nvcc for sm_90a into `build/onbody_tpu_torch/libonbody_kernels.so` under
-the repository root at first use, and rebuilt when a hash of the sources
-and flags changes. Nothing here runs at import time, so the module
-imports on machines without nvcc or a GPU.
+The sources in `csrc/` have a plain C interface. Each workload's
+translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`, `vortgrad3d.cu`)
+instantiates the executor and direct templates (`pairs.cuh`,
+`direct.cuh`) on its body; nvcc compiles the units in parallel for
+sm_90a and links them into `build/onbody_tpu_torch/libonbody_kernels.so`
+under the repository root at first use, rebuilt when a hash of the
+sources and flags changes. Nothing here runs at import time, so the
+module imports on machines without nvcc or a GPU.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import pathlib
+import shutil
 import subprocess
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pairs.cu", "direct.cu")
-HEADERS = ("grav3d_body.cuh",)
+# one translation unit per workload
+SOURCES = ("grav3d.cu", "vort2d.cu", "vort3d.cu", "vortgrad3d.cu")
+HEADERS = ("core.cuh", "body.cuh", "pairs.cuh", "direct.cuh", "entries.cuh",
+           "grav3d_body.cuh", "vort2d_body.cuh", "vort3d_body.cuh",
+           "vortgrad3d_body.cuh")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "onbody_tpu_torch")
 LIB_NAME = "libonbody_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# core_func values with a CUDA body (core.cuh); grav3d has no core
+CUDA_CORES = ("rm", "exp")
+KINDS = ("exec", "exec_t2", "direct")
+INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
+                                                     "vortgrad3d")
+                                for c in CUDA_CORES)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argtypes (every entry returns cudaGetLastError() as int)
-_ENTRIES = {
-    "onbody_exec_pairs": [_P] * 6 + [_I] * 5 + [_P],
-    "onbody_exec_pairs_t2": [_P] * 6 + [_I] * 5 + [_P],
-    "onbody_direct": [_P] * 5 + [_I] * 2 + [_P],
+_ARGTYPES = {
+    "exec": [_P] * 6 + [_I] * 5 + [_P],
+    "exec_t2": [_P] * 6 + [_I] * 5 + [_P],
+    "direct": [_P] * 3 + [_I] * 2 + [_P],
 }
+
+
+def instance(kernel_name: str, core: str) -> str:
+    """The compiled instantiation of a (workload, core): 'grav3d' (the
+    gravity body has no core) or '<workload>_<core>'. Raises for a core
+    without a CUDA body."""
+    if kernel_name == "grav3d":
+        return "grav3d"
+    if core not in CUDA_CORES:
+        raise NotImplementedError(
+            f"core_func {core!r} has no CUDA body yet (ROADMAP.md Queue 1 "
+            "item 9); the CUDA kernels take core_func in "
+            f"{CUDA_CORES}")
+    return f"{kernel_name}_{core}"
+
+
+def entry(kind: str, inst: str) -> str:
+    """C entry point name of kernel `kind` for instantiation `inst`."""
+    return f"onbody_{kind}_{inst}"
 
 
 def _nvcc() -> str:
@@ -53,30 +85,45 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
+
+
 def build() -> str:
-    """Compile the library unless an up-to-date one exists. Returns
-    nvcc's diagnostics (the ptxas register/spill report), or "" when
-    the cached library was current."""
+    """Compile the library unless an up-to-date one exists: one nvcc per
+    translation unit, all started together, then one link. Returns
+    nvcc's diagnostics (the ptxas register/spill report), or "" when the
+    cached library was current."""
     digest = source_hash()
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name and rename: concurrent builders never
+    nvcc = _nvcc()
+    # build under private names and rename: concurrent builders never
     # load a half-written library
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    tmp_stamp = BUILD_DIR / f".{LIB_NAME}.sha256.{os.getpid()}"
-    tmp_stamp.write_text(digest)
-    os.replace(tmp_stamp, stamp)
-    return res.stdout + res.stderr
+    tmp_dir = BUILD_DIR / f".obj.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmp_dir / (s[:-3] + ".o") for s in SOURCES]
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            reports = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]))
+        tmp = tmp_dir / LIB_NAME
+        reports.append(_run([nvcc, "-shared", "-o", str(tmp),
+                             *map(str, objs)]))
+        os.replace(tmp, lib)
+        tmp_stamp = tmp_dir / "stamp"
+        tmp_stamp.write_text(digest)
+        os.replace(tmp_stamp, stamp)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return "".join(reports)
 
 
 @functools.cache
@@ -84,10 +131,11 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     build()
     so = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-    for name, argtypes in _ENTRIES.items():
-        fn = getattr(so, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for inst in INSTANCES:
+        for kind in KINDS:
+            fn = getattr(so, entry(kind, inst))
+            fn.argtypes = _ARGTYPES[kind]
+            fn.restype = ctypes.c_int
     so.onbody_error_string.argtypes = [ctypes.c_int]
     so.onbody_error_string.restype = ctypes.c_char_p
     return so

@@ -1,33 +1,37 @@
 """Grouped pair executors: kernels K1/K2 and their plain twins (port of
-onbody_tpu/ops/pallas_pairs.py).
+onbody_tpu/ops/pallas_pairs.py), for every workload.
 
 Work list: groups ordered by target row, group_t (P,) target rows (K2:
 target PARENT ids q, standing for rows 2q and 2q+1) and group_s (P, G)
 source rows; row 0 is the inert pad row and a pad step has group_t == 0.
 Layouts are the reference's: tgt_geo (NN_t, 8, B) [pos | rad | 0],
 src_fm (NN_s, C, B) from `featurize`, and the feature-major accumulator
-out_fm (NN_t, od8, B).
+out_fm (NN_t, od8, B) with od8 = OD rounded up to 8 (16 for vortgrad3d).
 
 The accumulator is updated IN PLACE (the reference donates it to an
 aliased output) and returned, so the interior pass and the paired leaf
 pass chain through one buffer in stream order.
 
-`exec_pairs_cuda` / `exec_pairs_cuda_t2` launch csrc/pairs.cu for CUDA
-tensors and take the twins `exec_pairs_torch` / `exec_pairs_torch_t2`
-for CPU tensors; they never move work between devices.
+`exec_pairs_cuda` / `exec_pairs_cuda_t2` launch csrc/pairs.cuh's
+instantiation for the kernel and core on CUDA tensors and take the twins
+`exec_pairs_torch` / `exec_pairs_torch_t2` for CPU tensors; they never
+move work between devices.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from onbody_tpu_torch.ops import cuda_lib
-from onbody_tpu_torch.ops.kernels import (Kernel, _grav3d_tile_fm,
-                                          _not_ported, featurize)
+from onbody_tpu_torch.ops.kernels import FM_ROWS, Kernel, featurize
 
 GROUP = 8
-# kernel launches by the wrappers (reset by callers that count a run)
-LAUNCHES = {"exec": 0, "exec_t2": 0}
+# kernel launches by the wrappers, keyed ("exec" or "exec_t2", instance)
+# with the instance as cuda_lib.instance names it (reset by callers that
+# count a run)
+LAUNCHES = collections.Counter()
 # elements per (steps, B, B) twin temporary: bounds its chunk of steps
 _TWIN_ELEMS = 1 << 22
 
@@ -45,7 +49,8 @@ def build_tgt_geo(blocks_pos, blocks_rad):
     return torch.cat([g, g.new_zeros((nn, 8 - pd - 1, b))], dim=1)
 
 
-def _od8(kernel: Kernel) -> int:
+def od8(kernel: Kernel) -> int:
+    """Rows of the feature-major accumulator: OD rounded up to 8."""
     return -(-kernel.od // 8) * 8
 
 
@@ -58,25 +63,27 @@ def _finish(kernel: Kernel, out_fm, final: bool):
 # ---------------------------------------------------------------- twins
 
 def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
-                     out_fm=None, final: bool = True):
+                     out_fm=None, final: bool = True, core: str = "rm"):
     """Plain twin of K1: per chunk of steps, gather the target blocks and
-    each group slot's source blocks, evaluate the batched tiles, and
-    index_add_ them into their rows (the reference's
-    traverse/exec.py:_exec_groups_xla_chunked). Pad steps are dropped."""
-    if kernel.name != "grav3d":
-        raise _not_ported(kernel.name)
+    each group slot's source blocks, evaluate the batched tiles with the
+    kernel's per-pair form, and index_add_ them into their rows (the
+    reference's traverse/exec.py:_exec_groups_xla_chunked). Pad steps are
+    dropped."""
     nn_t, _, b = tgt_geo.shape
+    pd = kernel.pd
     if out_fm is None:
-        out_fm = tgt_geo.new_zeros((nn_t, _od8(kernel), b))
+        out_fm = tgt_geo.new_zeros((nn_t, od8(kernel), b))
     keep = group_t != 0
     gt, gs = group_t[keep].long(), group_s[keep].long()
     step = max(1, _TWIN_ELEMS // (b * b))
     for p0 in range(0, gt.shape[0], step):
         t_c, s_c = gt[p0:p0 + step], gs[p0:p0 + step]
-        tpos = tgt_geo[t_c, :3, :].transpose(1, 2)          # (P, B, 3)
+        geo = tgt_geo[t_c]
+        tpos = geo[:, :pd, :].transpose(1, 2)               # (P, B, PD)
+        trad = geo[:, pd, :]                                # (P, B)
         acc = None
         for j in range(s_c.shape[1]):
-            tj = _grav3d_tile_fm(tpos, src_fm[s_c[:, j]])
+            tj = kernel.tile_fm(tpos, trad, src_fm[s_c[:, j]], core)
             acc = tj if acc is None else acc + tj
         add = out_fm.new_zeros((t_c.shape[0],) + out_fm.shape[1:])
         add[:, :kernel.od] = acc.transpose(1, 2)
@@ -85,7 +92,7 @@ def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
 
 
 def exec_pairs_torch_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
-                        out_fm):
+                        out_fm, core: str = "rm"):
     """Plain twin of K2: expand each parent-keyed step q to the steps
     (2q, srcs) and (2q+1, srcs) and run the unpaired twin. Pad steps are
     dropped, so rows 0 and 1 (the root) are never written."""
@@ -93,7 +100,8 @@ def exec_pairs_torch_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     q, gs = group_t[keep], group_s[keep]
     return exec_pairs_torch(kernel, tgt_geo, src_fm,
                             torch.cat([2 * q, 2 * q + 1]),
-                            torch.cat([gs, gs]), out_fm, final=False)
+                            torch.cat([gs, gs]), out_fm, final=False,
+                            core=core)
 
 
 # --------------------------------------------------------------- kernels
@@ -123,17 +131,17 @@ def _runs(group_t, group_s):
 
 def _check_exec(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
                 paired: bool):
-    if kernel.name != "grav3d":
-        raise _not_ported(kernel.name)
     nn_t, rows_t, b = tgt_geo.shape
     nn_s, c, b_s = src_fm.shape
-    if rows_t != 8 or b_s != b or c < 5:
-        raise ValueError(f"pair executor: tgt_geo {tuple(tgt_geo.shape)} "
-                         f"and src_fm {tuple(src_fm.shape)} do not match "
-                         "(NN, 8, B) / (NN, C>=5, B)")
-    if tuple(out_fm.shape) != (nn_t, _od8(kernel), b):
+    rows = FM_ROWS[kernel.name]
+    if rows_t != 8 or b_s != b or c < rows:
+        raise ValueError(f"pair executor {kernel.name}: tgt_geo "
+                         f"{tuple(tgt_geo.shape)} and src_fm "
+                         f"{tuple(src_fm.shape)} do not match (NN, 8, B) / "
+                         f"(NN, C>={rows}, B)")
+    if tuple(out_fm.shape) != (nn_t, od8(kernel), b):
         raise ValueError(f"pair executor: out_fm {tuple(out_fm.shape)}, "
-                         f"expected {(nn_t, _od8(kernel), b)}")
+                         f"expected {(nn_t, od8(kernel), b)}")
     for name, t in (("tgt_geo", tgt_geo), ("src_fm", src_fm),
                     ("out_fm", out_fm)):
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -150,12 +158,15 @@ def _check_exec(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
         raise ValueError("pair executor: sizes must fit in int32")
 
 
-def _launch(entry: str, kernel, tgt_geo, src_fm, group_t, group_s,
-            out_fm, paired: bool) -> bool:
+def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
+            out_fm) -> bool:
     """Run one executor kernel; False when the list has no real step."""
+    paired = kind == "exec_t2"
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry(kind, inst)
     devs = {t.device for t in (tgt_geo, src_fm, group_t, group_s, out_fm)}
     if len(devs) != 1 or devs.pop().type != "cuda":
-        raise ValueError(f"{entry}: the kernel needs every tensor on one "
+        raise ValueError(f"{name}: the kernel needs every tensor on one "
                          "CUDA device")
     _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired)
     run_tgt, run_off, pair_s = _runs(group_t, group_s)
@@ -165,44 +176,46 @@ def _launch(entry: str, kernel, tgt_geo, src_fm, group_t, group_s,
     t_lo, t_hi, s_lo, s_hi = torch.stack(
         [run_tgt.min(), run_tgt.max(), pair_s.min(), pair_s.max()]).tolist()
     if t_lo < 1 or t_hi >= nn_t or s_lo < 0 or s_hi >= src_fm.shape[0]:
-        raise ValueError(f"{entry}: row ids out of range (targets "
+        raise ValueError(f"{name}: row ids out of range (targets "
                          f"[{t_lo}, {t_hi}] of {nn_t}, sources "
                          f"[{s_lo}, {s_hi}] of {src_fm.shape[0]})")
     _, c, b = src_fm.shape
-    rc = getattr(cuda_lib.lib(), entry)(
+    rc = getattr(cuda_lib.lib(), name)(
         tgt_geo.data_ptr(), src_fm.data_ptr(), out_fm.data_ptr(),
         run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
         run_tgt.numel(), b, c, pair_s.shape[1], out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
-    cuda_lib.check(rc, entry)
+    cuda_lib.check(rc, name)
+    LAUNCHES[(kind, inst)] += 1
     return True
 
 
 def exec_pairs_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
-                    out_fm=None, final: bool = True):
+                    out_fm=None, final: bool = True, core: str = "rm"):
     """Unpaired grouped executor. CUDA tensors launch K1, CPU tensors
     take exec_pairs_torch. Adds into out_fm (zeros when None) and returns
     it, or with final=True the point-major (NN_t, B, OD) view.
 
     K1 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk with
-    _body_interleaved. It is bound by the SM issue rate (one rsqrt and
-    ~17 FMA-class ops per pair): one CTA per run of a target row keeps
-    the row's sums in registers and stages each (5, B) source block in
-    shared memory once for all B targets (csrc/pairs.cu)."""
+    _body_interleaved. It is bound by the SM's FP32/MUFU rates over the
+    operations each pair needs (counted in the body's header; PERF.md
+    has the bound):
+    one CTA per run of a target row keeps the row's sums in registers
+    and stages each source block in shared memory once for all B targets
+    (csrc/pairs.cuh)."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t, group_s,
-                                out_fm, final)
+                                out_fm, final, core)
     if out_fm is None:
-        out_fm = tgt_geo.new_zeros((tgt_geo.shape[0], _od8(kernel),
+        out_fm = tgt_geo.new_zeros((tgt_geo.shape[0], od8(kernel),
                                     tgt_geo.shape[2]))
-    if _launch("onbody_exec_pairs", kernel, tgt_geo, src_fm, group_t,
-               group_s, out_fm, paired=False):
-        LAUNCHES["exec"] += 1
+    _launch("exec", kernel, core, tgt_geo, src_fm, group_t, group_s,
+            out_fm)
     return _finish(kernel, out_fm, final)
 
 
 def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
-                       out_fm):
+                       out_fm, core: str = "rm"):
     """Sibling-paired grouped executor on parent-keyed steps. CUDA
     tensors launch K2, CPU tensors take exec_pairs_torch_t2. Adds into
     out_fm and returns it; rows 0 and 1 are never written.
@@ -213,8 +226,7 @@ def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     shared-memory staging per pair."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_torch_t2(kernel, tgt_geo, src_fm, group_t,
-                                   group_s, out_fm)
-    if _launch("onbody_exec_pairs_t2", kernel, tgt_geo, src_fm, group_t,
-               group_s, out_fm, paired=True):
-        LAUNCHES["exec_t2"] += 1
+                                   group_s, out_fm, core)
+    _launch("exec_t2", kernel, core, tgt_geo, src_fm, group_t, group_s,
+            out_fm)
     return out_fm

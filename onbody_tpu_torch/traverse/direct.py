@@ -3,7 +3,9 @@
 * ``direct_oracle`` — fp64 pairwise broadcast chunked over targets: the
   accuracy oracle every fast method is validated against.
 * ``direct`` — the fp32 production path: kernel K4 on CUDA tensors, its
-  plain twin on CPU tensors (ops/cuda_direct.py).
+  plain twin on CPU tensors (ops/cuda_direct.py). Both evaluate every
+  kernel per pair (the reference routes the 3D vortex kernels through
+  its per-pair form for the same reason, direct.py:114-133).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ def _target_radii(kernel: Kernel, targs: Parts, dtype):
 
 
 def direct_oracle(kernel: Kernel, srcs: Parts, targs: Parts,
-                  tskip: int = 1, chunk: int = 256) -> torch.Tensor:
+                  core: str = "rm", tskip: int = 1,
+                  chunk: int = 256) -> torch.Tensor:
     """fp64 direct sum over every tskip-th target: (ceil(M/tskip), OD)."""
     f64 = torch.float64
     tx = targs.x[::tskip].to(f64)
@@ -31,20 +34,21 @@ def direct_oracle(kernel: Kernel, srcs: Parts, targs: Parts,
     out = tx.new_empty((tx.shape[0], kernel.od))
     for t0 in range(0, tx.shape[0], chunk):
         out[t0:t0 + chunk] = kernel.pairwise(
-            tx[t0:t0 + chunk], tr[t0:t0 + chunk], sx, sr, ss).sum(1)
+            tx[t0:t0 + chunk], tr[t0:t0 + chunk], sx, sr, ss, core).sum(1)
     return out
 
 
-def direct(kernel: Kernel, srcs: Parts, targs: Parts,
+def direct(kernel: Kernel, srcs: Parts, targs: Parts, core: str = "rm",
            accum_dtype=torch.float32) -> torch.Tensor:
     """Direct sum in fp32: (M, OD). Runs kernel K4 when the particles
-    are on a CUDA device, its plain twin when they are on the CPU."""
+    are on a CUDA device, its plain twin when they are on the CPU.
+    Strengths are (S, SD)."""
     if accum_dtype != torch.float32:
         raise NotImplementedError("float64 direct accumulation is not "
                                   "ported yet (ROADMAP.md Queue 1 item 9)")
-    tr = _target_radii(kernel, targs, targs.x.dtype)
     f32 = torch.float32
+    tr = _target_radii(kernel, targs, f32)
     return cuda_direct.direct_cuda(
-        kernel, targs.x.to(f32).contiguous(), tr, srcs.x.to(f32).contiguous(),
-        srcs.r.to(f32).contiguous(),
-        srcs.s.to(f32).reshape(-1, 1).contiguous())
+        kernel, targs.x.to(f32).contiguous(), tr.contiguous(),
+        srcs.x.to(f32).contiguous(), srcs.r.to(f32).contiguous(),
+        srcs.s.to(f32).contiguous(), core)

@@ -77,7 +77,7 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
     padded slots — the reference drivers' convention; map rows through
     plan.tgt_gidx. cfg.dtt_leaf_pair2 runs the leaf level through the
     sibling-paired executor (on either backend)."""
-    check_supported(cfg)
+    check_supported(cfg, kernel)
     theta = cfg.theta_dtt if theta is None else theta
     stree, ttree = plan.stree, plan.ttree
     use_p2 = (cfg.dtt_leaf_pair2 and stree.levels <= ttree.levels

@@ -2,8 +2,10 @@
 
 Groups the builder's flat (tgt_row, src_row) list into G-wide chunks and
 runs them through the grouped executor into one feature-major
-accumulator; the sibling-paired leaf list, when given, chains into the
-same accumulator through the paired executor (reference exec.py:263-302).
+accumulator (od8 = OD rounded up to 8 rows: 16 for vortgrad3d); the
+sibling-paired leaf list, when given, chains into the same accumulator
+through the paired executor (reference exec.py:263-302). Both run the
+workload's body with cfg.core_func.
 
 Backends (config.pair_backend): 'auto' runs the CUDA kernels on CUDA
 tensors and the torch twins on CPU tensors, 'cuda' the kernels (raising
@@ -50,18 +52,17 @@ def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
     the builder's combined n_valid and the summed overflow."""
     run, run_t2 = _executors(cfg, plan.tgt_geo)
     nn_t, _, b = plan.tgt_geo.shape
-    od8 = -(-kernel.od // 8) * 8
-    out_fm = plan.tgt_geo.new_zeros((nn_t, od8, b))
+    out_fm = plan.tgt_geo.new_zeros((nn_t, pp.od8(kernel), b))
     with phase(timer, "exec interior"):
         pg = _grouped(raw, cfg, slot_width, cap_groups_per_row)
         run(kernel, plan.tgt_geo, plan.src_fm, pg.tgt, pg.src, out_fm,
-            final=False)
+            final=False, core=cfg.core_func)
     info = pg
     if raw2 is not None:
         with phase(timer, "exec leaf2"):
             pg2 = _grouped(raw2, cfg, slot_width, cap_groups_per_row)
             run_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt, pg2.src,
-                   out_fm)
+                   out_fm, core=cfg.core_func)
         info = pg._replace(n_valid=raw.n_valid,
                            overflow=pg.overflow + pg2.overflow)
     return out_fm[:, :kernel.od, :].transpose(1, 2), info

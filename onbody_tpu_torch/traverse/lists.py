@@ -98,12 +98,11 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
         raise NotImplementedError("mac_geometry='f32' is not ported "
                                   "(ROADMAP.md Queue 1 item 5)")
     pd = stree.nc.shape[1]
-    if pd != 3:
-        raise NotImplementedError("2D lists are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
     th = torch.tensor(theta, dtype=torch.float32, device=stree.x.device)
     lo, scale = _quant_grid(stree, ttree)
     inv = 1.0 / scale
+    # grid-unit CM per dimension, then the node radius (2D: x, y, nr;
+    # reference lists.py:591-600)
     sq = [_quant_u16((stree.x[:, d] - lo[d]) * inv) for d in range(pd)]
     sq.append(_quant_u16(stree.nr * inv))
 
@@ -114,11 +113,11 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
         tcm_u, tnr_u = tgeo
         valid = cand != 0
         s_is_leaf = cand >= nleaf_s
-        dx = sq[0][cand] - tcm_u[:, None, 0]
-        dy = sq[1][cand] - tcm_u[:, None, 1]
-        dz = sq[2][cand] - tcm_u[:, None, 2]
-        d2 = dx * dx + dy * dy + dz * dz
-        lim = th * (sq[3][cand] + tnr_u[:, None])
+        d2 = None
+        for d in range(pd):
+            dd = sq[d][cand] - tcm_u[:, None, d]
+            d2 = dd * dd if d2 is None else d2 + dd * dd
+        lim = th * (sq[pd][cand] + tnr_u[:, None])
         sep = d2 > lim * lim
         accept = valid & ((s_is_leaf & t_is_leaf) | sep)
         if t_is_leaf:

@@ -40,7 +40,7 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
     """Build both trees and the unified block arrays (the reference
     times this as 'build tree' + 'calc equivalents'). want_inv=False
     skips the inverse target permutation (results stay in tree order)."""
-    check_supported(cfg)
+    check_supported(cfg, kernel)
     srcs = P.astype(srcs, cfg.storage_dtype)
     targs = P.astype(targs, cfg.storage_dtype)
     kw = dict(block_size=cfg.block_size, mode=cfg.tree_mode,

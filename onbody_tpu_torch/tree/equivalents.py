@@ -91,30 +91,34 @@ def bary_factors(pts, nc, ns, order: int):
 
 def anterp_factored(pts, nc, ns, order: int, s):
     """Upward anterpolation: (n,P,PD) points with (n,P,SD) strengths ->
-    (n, M, SD) grid strengths, M flattened with dimension 0 fastest."""
+    (n, M, SD) grid strengths, M flattened with dimension 0 fastest
+    (PD 3 or 2)."""
     f = bary_factors(pts, nc, ns, order)            # (n, P, PD, ncp)
-    if pts.shape[-1] != 3:
-        raise NotImplementedError("2D equivalents are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
-    t = torch.einsum("npk,nps->npks", f[..., 2, :], s)
-    t = torch.einsum("npj,npks->npjks", f[..., 1, :], t)
-    eq = torch.einsum("npi,npjks->nkjis", f[..., 0, :], t)
+    if pts.shape[-1] == 3:
+        t = torch.einsum("npk,nps->npks", f[..., 2, :], s)
+        t = torch.einsum("npj,npks->npjks", f[..., 1, :], t)
+        eq = torch.einsum("npi,npjks->nkjis", f[..., 0, :], t)
+        n, ncp = eq.shape[0], eq.shape[1]
+        return eq.reshape(n, ncp ** 3, s.shape[-1])
+    t = torch.einsum("npj,nps->npjs", f[..., 1, :], s)
+    eq = torch.einsum("npi,npjs->njis", f[..., 0, :], t)
     n, ncp = eq.shape[0], eq.shape[1]
-    return eq.reshape(n, ncp ** 3, s.shape[-1])
+    return eq.reshape(n, ncp ** 2, s.shape[-1])
 
 
 def prolong_factored(pts, nc, ns, order: int, U):
     """Downward prolongation: (n, M, OD) grid values -> (n, P, OD) at
-    pts (n, P, PD)."""
+    pts (n, P, PD), PD 3 or 2."""
     f = bary_factors(pts, nc, ns, order)
-    if pts.shape[-1] != 3:
-        raise NotImplementedError("2D equivalents are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
     ncp = order + 1
     n, _, od = U.shape
-    uk = U.reshape(n, ncp, ncp, ncp, od)            # (n, k, j, i, o)
-    t = torch.einsum("nkjio,npk->njiop", uk, f[..., 2, :])
-    t = torch.einsum("njiop,npj->niop", t, f[..., 1, :])
+    if pts.shape[-1] == 3:
+        uk = U.reshape(n, ncp, ncp, ncp, od)        # (n, k, j, i, o)
+        t = torch.einsum("nkjio,npk->njiop", uk, f[..., 2, :])
+        t = torch.einsum("njiop,npj->niop", t, f[..., 1, :])
+    else:
+        uj = U.reshape(n, ncp, ncp, od)             # (n, j, i, o)
+        t = torch.einsum("njio,npj->niop", uj, f[..., 1, :])
     return torch.einsum("niop,npi->npo", t, f[..., 0, :])
 
 

@@ -29,16 +29,24 @@ def unique_coords(rng, n: int, pd: int = 3) -> np.ndarray:
     return np.stack(cols, axis=1).astype(np.float32)
 
 
-def make_inputs(seed: int, n: int, m: int = None):
-    """Sources (x, r, s) and targets (x, r) as float32 numpy arrays."""
+def make_inputs(seed: int, n: int, m: int = None, pd: int = 3,
+                sd: int = 1):
+    """Sources (x, r, s) and targets (x, r) as float32 numpy arrays in
+    pd dimensions with sd strength components (radius n^(-1/pd), as
+    parts.random_in_cube)."""
     m = n if m is None else m
     rng = np.random.default_rng(seed)
-    sx = unique_coords(rng, n)
-    ss = (rng.uniform(-1, 1, (n, 1)) / n).astype(np.float32)
-    sr = np.full((n,), n ** (-1 / 3), np.float32)
-    tx = unique_coords(rng, m)
-    tr = np.full((m,), m ** (-1 / 3), np.float32)
+    sx = unique_coords(rng, n, pd)
+    ss = (rng.uniform(-1, 1, (n, sd)) / n).astype(np.float32)
+    sr = np.full((n,), n ** (-1 / pd), np.float32)
+    tx = unique_coords(rng, m, pd)
+    tr = np.full((m,), m ** (-1 / pd), np.float32)
     return sx, sr, ss, tx, tr
+
+
+def kernel_inputs(kernel, seed: int, n: int, m: int = None):
+    """make_inputs at a kernel's pd and sd."""
+    return make_inputs(seed, n, m, kernel.pd, kernel.sd)
 
 
 def jax_parts(x, r, s=None):

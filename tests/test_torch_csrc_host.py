@@ -1,0 +1,223 @@
+"""The CUDA kernel sources (onbody_tpu_torch/ops/csrc) compiled for the
+host and held against their plain twins on the CPU.
+
+g++ builds the four translation units with CUDA's few keywords stubbed
+out and each launch run block by block on one thread: a block of `t`
+threads becomes `t` blocks of one thread, so the staging loops stage the
+whole block and the barriers are no-ops. That exercises the kernels' own
+indexing, staging, run tables, masking of ragged edges, output layouts
+and body arithmetic (rsqrtf as 1/sqrtf) without a GPU; the card itself
+is tested in test_torch_cuda.py. Skips where there is no g++.
+
+Limits: there is no concurrency inside a block, so nothing here tests
+the barriers, shared-memory races or any warp-level code (shuffles,
+cp.async, TMA, multi-thread reductions); and the rewrite finds the
+dynamic shared buffer and the `<<<...>>>` launches by regex, so it
+depends on how the sources spell them. Once a kernel gains warp-level
+code, this emulation no longer means anything for it: drop it then
+rather than grow the stubs.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from onbody_tpu_torch.ops import cuda_direct, cuda_lib, cuda_pairs
+from onbody_tpu_torch.ops.kernels import featurize, get_kernel
+
+torch.set_num_threads(1)
+
+# instantiations as (workload, core)
+INSTANCES = [("grav3d", "rm")] + [(k, c) for k in ("vort2d", "vort3d",
+                                                   "vortgrad3d")
+                                  for c in cuda_lib.CUDA_CORES]
+IDS = [f"{k}-{c}" for k, c in INSTANCES]
+REL_RMS, MAX_REL = 1e-5, 1e-4           # chip_smoke.py's kernel limits
+
+HOST_STUB = r"""
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
+static float host_dyn_smem[1 << 16];
+inline void __syncthreads() {}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+typedef int cudaError_t;
+enum { cudaSuccess = 0 };
+typedef void* cudaStream_t;
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(int) { return "host"; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return 0;
+}
+template <class... A> struct HostLaunch {
+  void (*k)(A...);
+  unsigned gx, gy;
+  void operator()(A... a) const {
+    for (unsigned y = 0; y < gy; ++y)
+      for (unsigned x = 0; x < gx; ++x) {
+        blockIdx = dim3(x, y, 0);
+        k(a...);
+      }
+  }
+};
+// executors: a 2D grid, thread blocks along y
+template <class... A> HostLaunch<A...> host_launch(void (*k)(A...), dim3 g,
+                                                   int t) {
+  return HostLaunch<A...>{k, g.x, g.y * (unsigned)t};
+}
+// direct: a 1D grid
+template <class... A> HostLaunch<A...> host_launch(void (*k)(A...), int g,
+                                                   int t) {
+  return HostLaunch<A...>{k, (unsigned)(g * t), 1u};
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel sources for the host")
+    d = tmp_path_factory.mktemp("csrc_host")
+    for f in cuda_lib.SOURCES + cuda_lib.HEADERS:
+        text = (cuda_lib.CSRC / f).read_text()
+        text = text.replace("extern __shared__ float sm[];",
+                            "float* sm = host_dyn_smem;")
+        text = re.sub(r"(\w+<[^<>;]*>)<<<([^,]+), ([^,]+), [^>]*>>>\(",
+                      r"host_launch(\1, \2, \3)(", text)
+        (d / f).write_text(text)
+    (d / "cuda_runtime.h").write_text("#pragma once\n")
+    (d / "host_stub.h").write_text(HOST_STUB)
+    (d / "all.cpp").write_text("".join(f'#include "{s}"\n'
+                                       for s in cuda_lib.SOURCES))
+    lib = d / "libhost.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-w",
+                    f"-I{d}", "-include", "host_stub.h", "-o", str(lib),
+                    str(d / "all.cpp")], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+def _entry(lib, kind, name, core):
+    fn = getattr(lib, cuda_lib.entry(kind, cuda_lib.instance(name, core)))
+    fn.argtypes = cuda_lib._ARGTYPES[kind]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _errors(got, ref):
+    got, ref = got.double(), ref.double()
+    return (float((got - ref).norm() / ref.norm()),
+            float((got - ref).abs().max() / ref.abs().max()))
+
+
+def _blocks(kernel, b=32, nn=16, seed=0):
+    """Source and target tables from the same points (the d2 = 0 leaf
+    diagonal included), varied radii, inert row 0."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand((nn, b, kernel.pd), generator=g)
+    rad = 0.03 + 0.04 * torch.rand((nn, b), generator=g)
+    s = torch.randn((nn, b, kernel.sd), generator=g) / b
+    pos[0], rad[0], s[0] = 0.0, 1.0, 0.0
+    return (featurize(kernel.name, pos, rad, s).contiguous(),
+            cuda_pairs.build_tgt_geo(pos, rad).contiguous())
+
+
+def _groups(gt_list, nn=16, group=8, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.tensor(gt_list)
+    gs = torch.randint(1, nn, (len(gt_list), group), generator=g)
+    gs[:, -2:] = torch.where(torch.rand((len(gt_list), 2), generator=g)
+                             < 0.5, 0, gs[:, -2:])   # some pad slots
+    gs[gt == 0] = 0
+    gs[0, 0] = gt_list[0]               # a block against itself
+    return gt, gs
+
+
+def _run_exec(lib, kind, kernel, core, tgt_geo, src_fm, gt, gs, out):
+    run_tgt, run_off, pair_s = cuda_pairs._runs(gt, gs)
+    _, c, b = src_fm.shape
+    return _entry(lib, kind, kernel.name, core)(
+        tgt_geo.data_ptr(), src_fm.data_ptr(), out.data_ptr(),
+        run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
+        run_tgt.numel(), b, c, pair_s.shape[1], out.shape[1], None)
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k1_matches_twin(host_lib, name, core):
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(kernel)
+    gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0])
+    out = torch.zeros((16, cuda_pairs.od8(kernel), 32))
+    assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, src_fm, gt,
+                     gs, out) == 0
+    twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                       final=False, core=core)
+    assert torch.isfinite(out).all()
+    rms, mx = _errors(out, twin)
+    assert rms <= REL_RMS and mx <= MAX_REL
+    # rows without a run stay untouched
+    assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k2_matches_twin_and_keeps_root(host_lib, name, core):
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(kernel, seed=2)
+    gt, gs = _groups([1, 1, 2, 0, 3, 5, 0, 7], seed=3)
+    out = torch.zeros((16, cuda_pairs.od8(kernel), 32))
+    out[1] = 7.25
+    twin = out.clone()
+    assert _run_exec(host_lib, "exec_t2", kernel, core, tgt_geo, src_fm,
+                     gt, gs, out) == 0
+    cuda_pairs.exec_pairs_torch_t2(kernel, tgt_geo, src_fm, gt, gs, twin,
+                                   core=core)
+    rms, mx = _errors(out[2:], twin[2:])
+    assert rms <= REL_RMS and mx <= MAX_REL
+    assert (out[1] == 7.25).all() and not out[0].any()
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k4_matches_twin(host_lib, name, core):
+    """Ragged on both axes: 301 targets (a partial CTA of 256) against
+    2500 sources (two full chunks of 1024 and a short one), some sources
+    on the targets themselves."""
+    kernel = get_kernel(name)
+    g = torch.Generator().manual_seed(4)
+    m, s = 301, 2500
+    tx = torch.rand((m, kernel.pd), generator=g)
+    tr = torch.full((m,), 0.03)
+    sx = torch.cat([tx[:40], torch.rand((s - 40, kernel.pd), generator=g)])
+    sr = 0.02 + 0.03 * torch.rand((s,), generator=g)
+    ss = torch.randn((s, kernel.sd), generator=g) / s
+    tgt = torch.cat([tx.T, tr[None, :]]).contiguous()
+    src = featurize(name, sx, sr, ss, pad8=False).contiguous()
+    out = torch.full((m, kernel.od), float("nan"))
+    assert _entry(host_lib, "direct", name, core)(
+        tgt.data_ptr(), src.data_ptr(), out.data_ptr(), m, s, None) == 0
+    twin = cuda_direct.direct_torch(kernel, tx, tr, sx, sr, ss, core)
+    rms, mx = _errors(out, twin)
+    assert rms <= REL_RMS and mx <= MAX_REL
+
+
+def test_host_library_exports_every_entry(host_lib):
+    for name, core in INSTANCES:
+        for kind in cuda_lib.KINDS:
+            _entry(host_lib, kind, name, core)
+    host_lib.onbody_error_string.restype = ctypes.c_char_p
+    assert host_lib.onbody_error_string(0) == b"host"

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (K1, K2 pair executors; K4 direct)
-against their plain twins and the fp64 oracle, and the slice on the card
-against the slice on the CPU. Every test needs a CUDA device and skips
-without one. This file imports no jax, so on the GPU machine it runs
-without the reference package's conftest:
+against their plain twins and the fp64 oracle, for every (workload, core)
+instantiation, and the slice on the card against the slice on the CPU for
+every workload. Every test needs a CUDA device and skips without one.
+This file imports no jax, so on the GPU machine it runs without the
+reference package's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -10,10 +11,10 @@ without the reference package's conftest:
 import pytest
 import torch
 
-from _torch_parity import (SLICE_KW, make_inputs, rel_rms, scale_rel_max,
+from _torch_parity import (SLICE_KW, kernel_inputs, rel_rms, scale_rel_max,
                            torch_parts)
 from onbody_tpu_torch.config import SolverConfig
-from onbody_tpu_torch.ops import cuda_direct, cuda_pairs
+from onbody_tpu_torch.ops import cuda_direct, cuda_lib, cuda_pairs
 from onbody_tpu_torch.ops.kernels import get_kernel
 from onbody_tpu_torch.parts import Parts
 from onbody_tpu_torch.traverse import direct, dtt, treecode
@@ -22,6 +23,12 @@ pytestmark = pytest.mark.cuda
 
 KER = get_kernel("grav3d")
 B = 128
+# (workload, core) of every compiled instantiation
+INSTANCES = [("grav3d", "rm")] + [(k, c) for k in ("vort2d", "vort3d",
+                                                   "vortgrad3d")
+                                  for c in cuda_lib.CUDA_CORES]
+IDS = [f"{k}-{c}" for k, c in INSTANCES]
+WORKLOADS = ["grav3d", "vort3d", "vortgrad3d", "vort2d"]
 
 
 @pytest.fixture
@@ -36,13 +43,13 @@ def _to(p: Parts, device) -> Parts:
                  s=None if p.s is None else p.s.to(device), n_real=p.n_real)
 
 
-def _blocks(dev, nn=16, seed=0):
+def _blocks(dev, kernel=KER, nn=16, seed=0):
     g = torch.Generator().manual_seed(seed)
-    pos = torch.rand((nn, B, 3), generator=g)
-    rad = torch.full((nn, B), 0.05)
-    s = torch.randn((nn, B, 1), generator=g) / B
+    pos = torch.rand((nn, B, kernel.pd), generator=g)
+    rad = 0.03 + 0.04 * torch.rand((nn, B), generator=g)
+    s = torch.randn((nn, B, kernel.sd), generator=g) / B
     pos[0], rad[0], s[0] = 0.0, 1.0, 0.0
-    src_fm = cuda_pairs.build_fm_blocks(KER, pos, rad, s).contiguous()
+    src_fm = cuda_pairs.build_fm_blocks(kernel, pos, rad, s).contiguous()
     tgt_geo = cuda_pairs.build_tgt_geo(pos, rad).contiguous()
     return src_fm.to(dev), tgt_geo.to(dev)
 
@@ -57,33 +64,45 @@ def _groups(dev, gt_list, nn=16, seed=1, group=8):
     return gt.to(dev), gs.to(dev)
 
 
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
 @pytest.mark.parametrize("gt_list", ([1, 1, 2, 3, 3, 0, 0, 0],
                                      [1, 1, 0, 2, 2, 0, 3, 0], [0] * 8))
-def test_k1_matches_twin(dev, gt_list):
-    src_fm, tgt_geo = _blocks(dev)
+def test_k1_matches_twin(dev, gt_list, name, core):
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
     gt, gs = _groups(dev, gt_list)
-    before = cuda_pairs.LAUNCHES["exec"]
-    got = cuda_pairs.exec_pairs_cuda(KER, tgt_geo, src_fm, gt, gs)
-    ref = cuda_pairs.exec_pairs_torch(KER, tgt_geo, src_fm, gt, gs)
+    key = ("exec", cuda_lib.instance(name, core))
+    before = cuda_pairs.LAUNCHES[key]
+    got = cuda_pairs.exec_pairs_cuda(kernel, tgt_geo, src_fm, gt, gs,
+                                     core=core)
+    ref = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                      core=core)
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES["exec"] == before + int(any(gt_list))
+    assert cuda_pairs.LAUNCHES[key] == before + int(any(gt_list))
+    assert got.shape == (16, B, kernel.od)
     if any(gt_list):
+        assert torch.isfinite(got).all()
         assert scale_rel_max(got[1:].cpu(), ref[1:].cpu()) < 1e-4
     else:
         assert not got.any()
 
 
-def test_k2_matches_twin_and_keeps_root(dev):
-    src_fm, tgt_geo = _blocks(dev)
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k2_matches_twin_and_keeps_root(dev, name, core):
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
     gt, gs = _groups(dev, [1, 1, 2, 3, 5, 0, 7, 0])
-    out = torch.zeros((16, 8, B), device=dev)
+    out = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
     out[1] = 7.25
     twin = out.clone()
-    before = cuda_pairs.LAUNCHES["exec_t2"]
-    cuda_pairs.exec_pairs_cuda_t2(KER, tgt_geo, src_fm, gt, gs, out)
-    cuda_pairs.exec_pairs_torch_t2(KER, tgt_geo, src_fm, gt, gs, twin)
+    key = ("exec_t2", cuda_lib.instance(name, core))
+    before = cuda_pairs.LAUNCHES[key]
+    cuda_pairs.exec_pairs_cuda_t2(kernel, tgt_geo, src_fm, gt, gs, out,
+                                  core=core)
+    cuda_pairs.exec_pairs_torch_t2(kernel, tgt_geo, src_fm, gt, gs, twin,
+                                   core=core)
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES["exec_t2"] == before + 1
+    assert cuda_pairs.LAUNCHES[key] == before + 1
     assert scale_rel_max(out[2:].cpu(), twin[2:].cpu()) < 1e-4
     assert bool((out[1] == 7.25).all()) and not out[0].any()
 
@@ -99,34 +118,49 @@ def test_kernels_refuse_bad_lists(dev):
         cuda_pairs.exec_pairs_cuda_t2(
             KER, tgt_geo, src_fm, torch.tensor([8, 0, 0, 0], device=dev),
             gs, torch.zeros((16, 8, B), device=dev))
+    # a core without a CUDA body raises instead of falling back
+    vk = get_kernel("vort3d")
+    vsrc, vgeo = _blocks(dev, vk)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cuda_pairs.exec_pairs_cuda(vk, vgeo, vsrc,
+                                   torch.tensor([1, 0, 0, 0], device=dev),
+                                   gs, core="v2")
 
 
-def test_k4_matches_twin_and_oracle(dev):
-    sx, sr, ss, tx, tr = make_inputs(5, 20000, 3000)
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k4_matches_twin_and_oracle(dev, name, core):
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 5, 20000, 3000)
     srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
-    before = cuda_direct.LAUNCHES["direct"]
-    got = direct.direct(KER, _to(srcs, dev), _to(targs, dev))
+    key = ("direct", cuda_lib.instance(name, core))
+    before = cuda_direct.LAUNCHES[key]
+    got = direct.direct(kernel, _to(srcs, dev), _to(targs, dev), core=core)
     torch.cuda.synchronize()
-    assert cuda_direct.LAUNCHES["direct"] == before + 1
-    twin = direct.direct(KER, srcs, targs)
+    assert cuda_direct.LAUNCHES[key] == before + 1
+    twin = direct.direct(kernel, srcs, targs, core=core)
     assert rel_rms(got.cpu(), twin) < 1e-5
-    assert rel_rms(got.cpu(), direct.direct_oracle(KER, srcs, targs)) < 1e-5
+    orc = direct.direct_oracle(kernel, srcs, targs, core=core)
+    assert rel_rms(got.cpu(), orc) < 1e-5
 
 
-def test_slice_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_slice_on_card_matches_cpu(dev, name):
     """prepare + solve_dtt through K1/K2 on the card vs the twins on the
     CPU, N = 3000 at the test slice configuration."""
-    sx, sr, ss, tx, tr = make_inputs(60, 3000)
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 60, 3000)
     srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
     cfg = SolverConfig(**SLICE_KW)
     cpu_out, cpu_info = dtt.solve_dtt(
-        KER, cfg, treecode.prepare(KER, cfg, srcs, targs))
-    before = dict(cuda_pairs.LAUNCHES)
+        kernel, cfg, treecode.prepare(kernel, cfg, srcs, targs))
+    inst = cuda_lib.instance(name, cfg.core_func)
+    keys = [("exec", inst), ("exec_t2", inst)]
+    before = [cuda_pairs.LAUNCHES[k] for k in keys]
     gcfg = cfg.replace(pair_backend="cuda")
     out, info = dtt.solve_dtt(
-        KER, gcfg, treecode.prepare(KER, gcfg, _to(srcs, dev),
-                                    _to(targs, dev)))
+        kernel, gcfg, treecode.prepare(kernel, gcfg, _to(srcs, dev),
+                                       _to(targs, dev)))
     torch.cuda.synchronize()
-    assert all(cuda_pairs.LAUNCHES[k] > before[k] for k in before)
+    assert all(cuda_pairs.LAUNCHES[k] > b for k, b in zip(keys, before))
     assert int(info.overflow) == int(cpu_info.overflow) == 0
     assert rel_rms(out.cpu(), cpu_out) <= 1e-5

@@ -1,0 +1,105 @@
+"""The kernels' bounds and the SASS cross-check of chip_smoke.py, on small
+listings laid out as cuobjdump prints them; no GPU needed."""
+
+import pathlib
+import re
+
+import pytest
+
+import chip_smoke as cs
+
+CSRC = (pathlib.Path(__file__).resolve().parents[1]
+        / "onbody_tpu_torch" / "ops" / "csrc")
+
+# two kernels: the unpaired grav3d executor (hex branch targets, an outer
+# loop around a staging loop and an unrolled pair loop) and the vort2d RM
+# direct kernel (label branch targets)
+LISTING = """
+\tcode for sm_90a
+\t\tFunction : _ZN6onbody9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_iiii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x0 */
+                                                                    /* 0x0 */
+        /*0010*/                   MOV R2, RZ ;                       /* 0x0 */
+        /*0020*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0030*/                   STS [R15], R4 ;
+        /*0040*/              @!P1 BRA 0x20 ;
+        /*0050*/                   LDS R6, [R5] ;
+        /*0060*/                   FADD R7, R6, -R8 ;
+        /*0070*/                   FFMA R9, R7, R7, R10 ;
+        /*0080*/                   MUFU.RSQ R11, R9 ;
+        /*0090*/                   FMUL R12, R11, R11 ;
+        /*00a0*/                   FFMA R13, R12, R7, R13 ;
+        /*00b0*/                   MUFU.RSQ R14, R9 ;
+        /*00c0*/                   FSEL R15, R14, R12, P0 ;
+        /*00d0*/                   FFMA R13, R15, R7, R13 ;
+        /*00e0*/               @P2 BRA 0x50 ;
+        /*00f0*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0100*/              @!P3 BRA 0x10 ;
+        /*0110*/                   EXIT ;
+\t\tFunction : _ZN6onbody13direct_kernelINS_6Vort2dINS_6CoreRmEEEEEvPKfS5_Pfii
+        /*0000*/                   MOV R2, RZ ;
+.L_x_3:
+        /*0010*/                   FADD R3, R2, R4 ;
+        /*0020*/                   MUFU.RCP R5, R3 ;
+        /*0030*/                   FFMA R6, R5, R3, -1 ;
+        /*0040*/                   FMUL R7, R6, R5 ;
+        /*0050*/               @P0 BRA `(.L_x_3) ;
+        /*0060*/                   BRA `(.L_x_4) ;
+.L_x_4:
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_parse_finds_innermost_loops():
+    loops = cs.sass_loops(LISTING)
+    assert len(loops) == 2
+    grav = [v for k, v in loops.items() if "Grav3d" in k][0]
+    # the staging loop [0x20, 0x40] and the pair loop [0x50, 0xe0]; the
+    # outer loop [0x10, 0x100] holds them and is not innermost
+    assert grav == [["LDG.E.CONSTANT", "STS", "BRA"],
+                    ["LDS", "FADD", "FFMA", "MUFU.RSQ", "FMUL", "FFMA",
+                     "MUFU.RSQ", "FSEL", "FFMA", "BRA"]]
+    vort = [v for k, v in loops.items() if "Vort2d" in k][0]
+    assert vort == [["FADD", "MUFU.RCP", "FFMA", "FMUL", "BRA"]]
+
+
+def test_per_pair_counts_and_bound():
+    loops = cs.sass_loops(LISTING)
+    # pair loop: 2 RSQ (2 pairs), FADD + 3 FFMA + FMUL = 5 FP32
+    assert cs.sass_issued(loops, "exec", "grav3d") == dict(
+        fp32=2.5, mufu=1.0, pairs_per_iter=2)
+    assert cs.sass_issued(loops, "direct", "vort2d") == dict(
+        fp32=3.0, mufu=1.0, pairs_per_iter=1)
+    # the bound reads the needed operations, never the issued ones:
+    # grav3d's 12 FP32 at 128 lanes outweigh its 1 MUFU at 16
+    t, pipe = cs.bound_s(1e12, "grav3d", 2e9)
+    assert pipe == "fp32"
+    assert t == pytest.approx(1e12 * 12 / (132 * 128 * 2e9))
+    t, pipe = cs.bound_s(1e12, "vortgrad3d", 2e9)
+    assert pipe == "fp32"
+    assert t == pytest.approx(1e12 * 37 / (132 * 128 * 2e9))
+    # vort2d's 8 FP32 and 1 MUFU take the same time on their pipes
+    t, _ = cs.bound_s(1e12, "vort2d", 2e9)
+    assert t == pytest.approx(1e12 / (132 * 16 * 2e9))
+
+
+def test_function_name_is_exact_per_instantiation():
+    loops = cs.sass_loops(LISTING)
+    with pytest.raises(LookupError):
+        cs.sass_issued(loops, "exec_t2", "grav3d")     # not listed
+    with pytest.raises(LookupError):
+        cs.sass_issued(loops, "direct", "vort3d")      # not listed
+    assert cs.SASS_SIG.get("vort2d") == "MUFU.RCP"
+    assert set(cs.SASS_BODY) == set(cs.PAIR_OPS) == set(cs.WORKLOADS)
+
+
+@pytest.mark.parametrize("name", ["grav3d", "vort3d", "vortgrad3d",
+                                  "vort2d"])
+def test_needed_ops_match_body_header(name):
+    """The bound's per-pair operations are the count derived in the
+    body's header."""
+    text = (CSRC / f"{name}_body.cuh").read_text()
+    m = re.search(r"needs[\s/]+(\d+)[\s/]+FP32-pipe[\s/]+operations"
+                  r"[\s/]+and[\s/]+(\d+)[\s/]+MUFU", text)
+    assert m is not None
+    assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS[name]
