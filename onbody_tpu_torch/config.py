@@ -6,10 +6,20 @@ so a configuration written for one package reads the same in the other.
 Keys that are TPU schedules of the same result are accepted and run the
 one torch path: `tree_paired`, `tree_defer_rs`, `tree_fuse`, the
 `tree_span_top` prefix slicing, `tree_bisect_group`, `list_compact`,
-`group_compact`, `pair_fetch`, `pair_tile_g`, `mac_geometry` packing
-(the 16-bit quantized MAC geometry itself is kept, it decides the pair
-lists), `d2_mode` and `mxu_precision` (distances and contractions are
-always full fp32).
+`group_compact`, `pair_tile_g`, `mac_geometry` packing (the 16-bit
+quantized MAC geometry itself is kept, it decides the pair lists),
+`d2_mode` and `mxu_precision` (distances and contractions are always
+full fp32).
+
+`pair_fetch` chooses the executor kernel as it does in the reference:
+`"pregather"` (the default) gathers each chunk of steps contiguous and
+runs K8 (K9 for the sibling-paired leaf list); `"dma"`, `"dma_i"` and
+`"dma_p"` run K1 (K2), which fetch source blocks by id — the
+reference's three issue schedules of that kernel are one kernel here;
+`"static"` runs K1 and refuses a paired list. `lean_plan` builds the
+feature-major arrays directly, without point-major Blocks; with a
+dma-family fetch it stores the rows padded to 8, with `"pregather"`
+the lean rows (reference treecode.py:112-125).
 
 Keys that change the result, or belong to paths this port does not run
 yet, raise NotImplementedError naming their ROADMAP item
@@ -25,6 +35,7 @@ import torch
 
 # pair_backend values of the port; the reference's "pallas" maps to "cuda"
 PAIR_BACKENDS = ("auto", "cuda", "torch")
+PAIR_FETCHES = ("pregather", "dma", "dma_i", "dma_p", "static")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +122,9 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
         no("tree_span_bot", 17)
     if cfg.tree_quant != "off":
         no("tree_quant", 17)
-    if cfg.lean_plan:
-        no("lean_plan", 13)
+    if cfg.pair_fetch not in PAIR_FETCHES:
+        raise ValueError(f"pair_fetch {cfg.pair_fetch!r}: one of "
+                         f"{PAIR_FETCHES}")
     if cfg.dtt_traversal != "level":
         no(f"dtt_traversal={cfg.dtt_traversal!r}", 11)
     if cfg.dtt_lists != "rows":
@@ -126,8 +138,12 @@ def tuned_config(n: int, kernel: str = "grav3d") -> SolverConfig:
     """The reference's per-N full-evaluation (DTT) table, unchanged.
 
     These settings were tuned on one TPU v5e (onbody_tpu/config.py
-    tuned_config); ROADMAP item 12 re-tunes them on the H100. Only the
-    rows below 4e7 run in this port (the >= 4e7 row needs lean_plan)."""
+    tuned_config); ROADMAP item 12 re-tunes them on the H100. Every
+    row's keys run through prepare + solve_dtt (the >= 4e7 row's
+    lean_plan and pregather fetch included); what that row still lacks
+    is the routine the reference runs it with, the subtree-chunked solve
+    of traverse/chunked.py (ROADMAP item 13), so here it is a
+    monolithic plan and must fit the card's memory."""
     cfg = _tuned_config_n(n)
     if kernel == "vort2d":
         cfg = cfg.replace(theta_dtt=max(cfg.theta_dtt, 1.4))

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from onbody_tpu_torch.parts import Parts
-from onbody_tpu_torch.traverse.lists import PairList
+from onbody_tpu_torch.traverse.lists import PairGroups, PairList
 from onbody_tpu_torch.traverse.treecode import Plan
 from onbody_tpu_torch.tree.build import Tree
 from onbody_tpu_torch.tree.equivalents import Blocks
@@ -45,7 +45,10 @@ def tree_from_numpy(t, device="cpu") -> Tree:
                 block_size=int(t.block_size))
 
 
-def blocks_from_numpy(b, device="cpu") -> Blocks:
+def blocks_from_numpy(b, device="cpu"):
+    """Blocks, or None for the lean plan's absent Blocks."""
+    if b is None:
+        return None
     return Blocks(pos=tensor(b.pos, device), rad=tensor(b.rad, device),
                   s=_opt(b.s, device))
 
@@ -56,7 +59,15 @@ def pairlist_from_numpy(pl, device="cpu") -> PairList:
                     overflow=tensor(pl.overflow, device))
 
 
+def pairgroups_from_numpy(pg, device="cpu") -> PairGroups:
+    return PairGroups(tgt=tensor(pg.tgt, device), src=tensor(pg.src, device),
+                      n_valid=tensor(pg.n_valid, device),
+                      overflow=tensor(pg.overflow, device))
+
+
 def plan_from_numpy(p, device="cpu") -> Plan:
+    """A reference Plan, full or lean (no Blocks; src_fm then holds the
+    lean feature rows)."""
     return Plan(stree=tree_from_numpy(p.stree, device),
                 ttree=tree_from_numpy(p.ttree, device),
                 src_sorted=parts_from_numpy(p.src_sorted, device),

@@ -2,6 +2,9 @@
 //   onbody_exec_<INST>     K1, the unpaired grouped executor (pairs.cuh)
 //   onbody_exec_t2_<INST>  K2, the sibling-paired executor (pairs.cuh)
 //   onbody_direct_<INST>   K4, the direct sum (direct.cuh)
+//   onbody_exec_pre_<INST>     K8, the unpaired executor on pre-gathered
+//                              sources (pairs.cuh)
+//   onbody_exec_pre_t2_<INST>  K9, its sibling-paired form (pairs.cuh)
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.
 #pragma once
@@ -25,6 +28,24 @@
     return onbody::launch_exec<BODY, true>(tgt_geo, src_fm, out, run_tgt,  \
                                            run_off, pair_s, n_runs, B, C,  \
                                            G, od8, stream);                \
+  }                                                                        \
+  extern "C" int onbody_exec_pre_##INST(                                   \
+      const float* tgt_geo, const float* src_gathered, float* out,         \
+      const int* run_tgt, const int* run_off, const int* steps,            \
+      const int* n_slots, int n_runs, int B, int C, int G, int od8,        \
+      void* stream) {                                                      \
+    return onbody::launch_exec_pre<BODY, false>(                           \
+        tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots,      \
+        n_runs, B, C, G, od8, stream);                                     \
+  }                                                                        \
+  extern "C" int onbody_exec_pre_t2_##INST(                                \
+      const float* tgt_geo, const float* src_gathered, float* out,         \
+      const int* run_tgt, const int* run_off, const int* steps,            \
+      const int* n_slots, int n_runs, int B, int C, int G, int od8,        \
+      void* stream) {                                                      \
+    return onbody::launch_exec_pre<BODY, true>(                            \
+        tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots,      \
+        n_runs, B, C, G, od8, stream);                                     \
   }                                                                        \
   extern "C" int onbody_direct_##INST(const float* tgt, const float* src,  \
                                       float* out, int M, int S,            \

@@ -1,5 +1,5 @@
-// K1, K2 and K4 with the grav3d body (one translation unit per workload,
-// so the build compiles the workloads in parallel).
+// K1, K2, K4, K8 and K9 with the grav3d body (one translation unit per
+// workload, so the build compiles the workloads in parallel).
 #include "entries.cuh"
 #include "grav3d_body.cuh"
 

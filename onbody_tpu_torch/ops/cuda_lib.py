@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 The sources in `csrc/` have a plain C interface. Each workload's
-translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`, `vortgrad3d.cu`)
-instantiates the executor and direct templates (`pairs.cuh`,
-`direct.cuh`) on its body; nvcc compiles the units in parallel for
-sm_90a and links them into `build/onbody_tpu_torch/libonbody_kernels.so`
-under the repository root at first use, rebuilt when a hash of the
-sources and flags changes. Nothing here runs at import time, so the
-module imports on machines without nvcc or a GPU.
+translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
+`vortgrad3d.cu`) instantiates the executor (K1, K2, K8, K9) and direct
+(K4) templates (`pairs.cuh`, `direct.cuh`) on its body; nvcc compiles
+the units in parallel for sm_90a and links them into
+`build/onbody_tpu_torch/libonbody_kernels.so` under the repository root
+at first use, rebuilt when a hash of the sources and flags changes.
+Nothing here runs at import time, so the module imports on machines
+without nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # core_func values with a CUDA body (core.cuh); grav3d has no core
 CUDA_CORES = ("rm", "exp")
-KINDS = ("exec", "exec_t2", "direct")
+KINDS = ("exec", "exec_t2", "direct", "exec_pre",
+         "exec_pre_t2")
 INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
                                                      "vortgrad3d")
                                 for c in CUDA_CORES)
@@ -47,6 +49,8 @@ _ARGTYPES = {
     "exec": [_P] * 6 + [_I] * 5 + [_P],
     "exec_t2": [_P] * 6 + [_I] * 5 + [_P],
     "direct": [_P] * 3 + [_I] * 2 + [_P],
+    "exec_pre": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_pre_t2": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

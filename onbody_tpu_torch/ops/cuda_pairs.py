@@ -1,5 +1,6 @@
-"""Grouped pair executors: kernels K1/K2 and their plain twins (port of
-onbody_tpu/ops/pallas_pairs.py), for every workload.
+"""Grouped pair executors: kernels K1/K2 (sources fetched by id), K8/K9
+(sources pre-gathered contiguous per step) and their plain twins (port
+of onbody_tpu/ops/pallas_pairs.py), for every workload.
 
 Work list: groups ordered by target row, group_t (P,) target rows (K2:
 target PARENT ids q, standing for rows 2q and 2q+1) and group_s (P, G)
@@ -15,7 +16,13 @@ pass chain through one buffer in stream order.
 `exec_pairs_cuda` / `exec_pairs_cuda_t2` launch csrc/pairs.cuh's
 instantiation for the kernel and core on CUDA tensors and take the twins
 `exec_pairs_torch` / `exec_pairs_torch_t2` for CPU tensors; they never
-move work between devices.
+move work between devices. `exec_pairs_pre_cuda` / `exec_pairs_pre_cuda_t2`
+do the same for K8/K9 on a gathered (P, G*C, B) buffer (`_pregather`).
+
+`exec_pairs` / `exec_pairs_t2` are the front doors with the reference's
+`fetch` argument: 'pregather' chunks the list, gathers each chunk and
+runs K8/K9; 'dma', 'dma_i', 'dma_p' and 'static' run K1/K2 (the
+reference's schedules of the same sum; 'static' has no paired form).
 """
 
 from __future__ import annotations
@@ -24,16 +31,25 @@ import collections
 
 import torch
 
+from onbody_tpu_torch.config import PAIR_FETCHES
 from onbody_tpu_torch.ops import cuda_lib
-from onbody_tpu_torch.ops.kernels import FM_ROWS, Kernel, featurize
+from onbody_tpu_torch.ops.kernels import (FM_ROWS, Kernel, featurize,
+                                          pad_fm_rows)
 
 GROUP = 8
-# kernel launches by the wrappers, keyed ("exec" or "exec_t2", instance)
-# with the instance as cuda_lib.instance names it (reset by callers that
-# count a run)
+# kernel launches by the wrappers, keyed (kind, instance) with kind one of
+# "exec", "exec_t2", "exec_pre", "exec_pre_t2" and the instance as
+# cuda_lib.instance names it (reset by callers that count a run)
 LAUNCHES = collections.Counter()
 # elements per (steps, B, B) twin temporary: bounds its chunk of steps
 _TWIN_ELEMS = 1 << 22
+# bytes of the gathered source buffer per pregather chunk (reference
+# pallas_pairs.py:894-897), sized at the row count padded to 8. One CTA
+# owns one run, so a chunk of long runs is a short grid: on an NVIDIA
+# H100 80GB HBM3 (700 W) the API's vortgrad3d treecode3 at N = 1e6 spent
+# 0.593 s in the executor at this size and 0.153 s with one launch
+# (chip_smoke.py --chunk-sweep; PERF.md)
+PREGATHER_BYTES = 256 << 20
 
 
 def build_fm_blocks(kernel: Kernel, blocks_pos, blocks_rad, blocks_s):
@@ -54,6 +70,12 @@ def od8(kernel: Kernel) -> int:
     return -(-kernel.od // 8) * 8
 
 
+def _zeros_fm(kernel: Kernel, tgt_geo):
+    """A zero feature-major accumulator (NN_t, od8, B) for tgt_geo."""
+    return tgt_geo.new_zeros((tgt_geo.shape[0], od8(kernel),
+                              tgt_geo.shape[2]))
+
+
 def _finish(kernel: Kernel, out_fm, final: bool):
     if not final:
         return out_fm
@@ -62,6 +84,30 @@ def _finish(kernel: Kernel, out_fm, final: bool):
 
 # ---------------------------------------------------------------- twins
 
+def _twin_add(kernel: Kernel, tgt_geo, out_fm, rows, src_block, group: int,
+              core: str):
+    """out_fm[rows[i]] += sum_j tile(target block rows[i], src_block(sel,
+    j)) over the group slots j, in chunks of steps; src_block(sel, j)
+    gives the (len(sel), C, B) source blocks of slot j for the steps
+    sel (a slice of rows)."""
+    b = tgt_geo.shape[2]
+    pd = kernel.pd
+    step = max(1, _TWIN_ELEMS // (b * b))
+    for p0 in range(0, rows.shape[0], step):
+        sel = slice(p0, p0 + step)
+        t_c = rows[sel]
+        geo = tgt_geo[t_c]
+        tpos = geo[:, :pd, :].transpose(1, 2)               # (P, B, PD)
+        trad = geo[:, pd, :]                                # (P, B)
+        acc = None
+        for j in range(group):
+            tj = kernel.tile_fm(tpos, trad, src_block(sel, j), core)
+            acc = tj if acc is None else acc + tj
+        add = out_fm.new_zeros((t_c.shape[0],) + out_fm.shape[1:])
+        add[:, :kernel.od] = acc.transpose(1, 2)
+        out_fm.index_add_(0, t_c, add)
+
+
 def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
                      out_fm=None, final: bool = True, core: str = "rm"):
     """Plain twin of K1: per chunk of steps, gather the target blocks and
@@ -69,25 +115,12 @@ def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     kernel's per-pair form, and index_add_ them into their rows (the
     reference's traverse/exec.py:_exec_groups_xla_chunked). Pad steps are
     dropped."""
-    nn_t, _, b = tgt_geo.shape
-    pd = kernel.pd
     if out_fm is None:
-        out_fm = tgt_geo.new_zeros((nn_t, od8(kernel), b))
+        out_fm = _zeros_fm(kernel, tgt_geo)
     keep = group_t != 0
     gt, gs = group_t[keep].long(), group_s[keep].long()
-    step = max(1, _TWIN_ELEMS // (b * b))
-    for p0 in range(0, gt.shape[0], step):
-        t_c, s_c = gt[p0:p0 + step], gs[p0:p0 + step]
-        geo = tgt_geo[t_c]
-        tpos = geo[:, :pd, :].transpose(1, 2)               # (P, B, PD)
-        trad = geo[:, pd, :]                                # (P, B)
-        acc = None
-        for j in range(s_c.shape[1]):
-            tj = kernel.tile_fm(tpos, trad, src_fm[s_c[:, j]], core)
-            acc = tj if acc is None else acc + tj
-        add = out_fm.new_zeros((t_c.shape[0],) + out_fm.shape[1:])
-        add[:, :kernel.od] = acc.transpose(1, 2)
-        out_fm.index_add_(0, t_c, add)
+    _twin_add(kernel, tgt_geo, out_fm, gt,
+              lambda sel, j: src_fm[gs[sel, j]], gs.shape[1], core)
     return _finish(kernel, out_fm, final)
 
 
@@ -104,15 +137,53 @@ def exec_pairs_torch_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
                             core=core)
 
 
+def _pre_twin(kernel, tgt_geo, src_gathered, group_t, out_fm, core, group,
+              paired: bool):
+    c = src_gathered.shape[1] // group
+    steps = torch.nonzero(group_t).squeeze(1)
+    rows = group_t[steps].long()
+    if paired:
+        rows = torch.cat([2 * rows, 2 * rows + 1])
+        steps = torch.cat([steps, steps])
+    _twin_add(kernel, tgt_geo, out_fm, rows,
+              lambda sel, j: src_gathered[steps[sel], j * c:(j + 1) * c],
+              group, core)
+
+
+def exec_pairs_pre_torch(kernel: Kernel, tgt_geo, src_gathered, group_t,
+                         out_fm=None, final: bool = True, core: str = "rm",
+                         group: int = GROUP):
+    """Plain twin of K8: step p's `group` source blocks are
+    src_gathered[p] (G*C, B), C rows each (the lean rows or the rows
+    padded to 8: the tile forms read the lean rows of either). Batched
+    tiles + index_add_; pad steps (group_t == 0) are dropped. Inert
+    slots of a real step are evaluated and add exactly zero."""
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    _pre_twin(kernel, tgt_geo, src_gathered, group_t, out_fm, core, group,
+              False)
+    return _finish(kernel, out_fm, final)
+
+
+def exec_pairs_pre_torch_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
+                            out_fm, core: str = "rm", group: int = GROUP):
+    """Plain twin of K9: step p's one gathered block serves rows 2q and
+    2q+1 of its parent key q = group_t[p]. Pad steps are dropped, so
+    rows 0 and 1 (the root) are never written."""
+    _pre_twin(kernel, tgt_geo, src_gathered, group_t, out_fm, core, group,
+              True)
+    return out_fm
+
+
 # --------------------------------------------------------------- kernels
 
-def _runs(group_t, group_s):
-    """Run table of a work list: maximal stretches of consecutive equal
-    non-zero group_t. Returns (run_tgt, run_off, pair_s) as contiguous
-    int32 on the list's device, pair_s holding the non-pad steps' source
-    ids (runs are contiguous in it, run r at [run_off[r], run_off[r+1])).
-    Raises if one target appears in two separate runs: two CTAs would
-    race on its output row."""
+def _run_table(group_t):
+    """Runs of a work list: maximal stretches of consecutive equal
+    non-zero group_t. Returns (steps, run_tgt, run_off): the non-pad
+    steps' indices, each run's target key, and the runs' bounds in
+    `steps` (run r at [run_off[r], run_off[r+1])); the last two as
+    contiguous int32 on the list's device. Raises if one target appears
+    in two separate runs: two CTAs would race on its output row."""
     idx = torch.nonzero(group_t).squeeze(1)
     gt = group_t[idx]
     brk = torch.ones_like(gt, dtype=torch.bool)
@@ -124,66 +195,130 @@ def _runs(group_t, group_s):
                          "separate runs; the list must be grouped by "
                          "target")
     run_off = torch.cat([starts, starts.new_tensor([gt.shape[0]])])
-    return (run_tgt.to(torch.int32).contiguous(),
-            run_off.to(torch.int32).contiguous(),
-            group_s[idx].to(torch.int32).contiguous())
+    return (idx, run_tgt.to(torch.int32).contiguous(),
+            run_off.to(torch.int32).contiguous())
 
 
-def _check_exec(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
-                paired: bool):
+def _runs(group_t, group_s):
+    """Run table of a work list for K1/K2: (run_tgt, run_off, pair_s),
+    pair_s holding the non-pad steps' source ids as contiguous int32
+    (runs are contiguous in it, see _run_table)."""
+    idx, run_tgt, run_off = _run_table(group_t)
+    return run_tgt, run_off, group_s[idx].to(torch.int32).contiguous()
+
+
+def _check_layout(kernel: Kernel, tgt_geo, out_fm, c: int, paired: bool,
+                  **tensors):
+    """Shapes and types every executor kernel needs: tgt_geo (NN, 8, B),
+    out_fm (NN, od8, B), C source rows >= the body's, all contiguous
+    float32."""
     nn_t, rows_t, b = tgt_geo.shape
-    nn_s, c, b_s = src_fm.shape
     rows = FM_ROWS[kernel.name]
-    if rows_t != 8 or b_s != b or c < rows:
+    if rows_t != 8 or c < rows:
         raise ValueError(f"pair executor {kernel.name}: tgt_geo "
-                         f"{tuple(tgt_geo.shape)} and src_fm "
-                         f"{tuple(src_fm.shape)} do not match (NN, 8, B) / "
-                         f"(NN, C>={rows}, B)")
+                         f"{tuple(tgt_geo.shape)} and {c} source rows do "
+                         f"not match (NN, 8, B) / C>={rows}")
     if tuple(out_fm.shape) != (nn_t, od8(kernel), b):
         raise ValueError(f"pair executor: out_fm {tuple(out_fm.shape)}, "
                          f"expected {(nn_t, od8(kernel), b)}")
-    for name, t in (("tgt_geo", tgt_geo), ("src_fm", src_fm),
-                    ("out_fm", out_fm)):
+    for name, t in dict(tgt_geo=tgt_geo, out_fm=out_fm, **tensors).items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"pair executor: {name} must be contiguous "
                              f"float32, got {t.dtype}")
-    if group_s.ndim != 2 or group_t.shape[0] != group_s.shape[0]:
-        raise ValueError("pair executor: group_t (P,) and group_s (P, G) "
-                         "disagree")
     if b > 2048:
         raise ValueError(f"pair executor: block width {b} > 2048")
     if paired and nn_t % 2:
         raise ValueError("paired executor needs an even target row count")
+
+
+def _check_exec(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
+                paired: bool):
+    nn_t, _, b = tgt_geo.shape
+    nn_s, c, b_s = src_fm.shape
+    if b_s != b:
+        raise ValueError(f"pair executor {kernel.name}: tgt_geo "
+                         f"{tuple(tgt_geo.shape)} and src_fm "
+                         f"{tuple(src_fm.shape)} differ in block width")
+    _check_layout(kernel, tgt_geo, out_fm, c, paired, src_fm=src_fm)
+    if group_s.ndim != 2 or group_t.shape[0] != group_s.shape[0]:
+        raise ValueError("pair executor: group_t (P,) and group_s (P, G) "
+                         "disagree")
     if max(nn_t, nn_s, group_s.numel()) >= 2 ** 31:
         raise ValueError("pair executor: sizes must fit in int32")
 
 
-def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
-            out_fm) -> bool:
-    """Run one executor kernel; False when the list has no real step."""
-    paired = kind == "exec_t2"
-    inst = cuda_lib.instance(kernel.name, core)
-    name = cuda_lib.entry(kind, inst)
-    devs = {t.device for t in (tgt_geo, src_fm, group_t, group_s, out_fm)}
+def _one_cuda_device(name: str, *tensors):
+    devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1 or devs.pop().type != "cuda":
         raise ValueError(f"{name}: the kernel needs every tensor on one "
                          "CUDA device")
+
+
+def _check_targets(name: str, run_tgt, nn_keys: int):
+    t_lo, t_hi = torch.stack([run_tgt.min(), run_tgt.max()]).tolist()
+    if t_lo < 1 or t_hi >= nn_keys:
+        raise ValueError(f"{name}: row ids out of range (targets "
+                         f"[{t_lo}, {t_hi}] of {nn_keys})")
+
+
+def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
+            out_fm) -> bool:
+    """Run one K1/K2 launch; False when the list has no real step."""
+    paired = kind == "exec_t2"
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry(kind, inst)
+    _one_cuda_device(name, tgt_geo, src_fm, group_t, group_s, out_fm)
     _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired)
     run_tgt, run_off, pair_s = _runs(group_t, group_s)
     if run_tgt.numel() == 0:
         return False
-    nn_t = tgt_geo.shape[0] // (2 if paired else 1)
-    t_lo, t_hi, s_lo, s_hi = torch.stack(
-        [run_tgt.min(), run_tgt.max(), pair_s.min(), pair_s.max()]).tolist()
-    if t_lo < 1 or t_hi >= nn_t or s_lo < 0 or s_hi >= src_fm.shape[0]:
-        raise ValueError(f"{name}: row ids out of range (targets "
-                         f"[{t_lo}, {t_hi}] of {nn_t}, sources "
+    _check_targets(name, run_tgt, tgt_geo.shape[0] // (2 if paired else 1))
+    s_lo, s_hi = torch.stack([pair_s.min(), pair_s.max()]).tolist()
+    if s_lo < 0 or s_hi >= src_fm.shape[0]:
+        raise ValueError(f"{name}: row ids out of range (sources "
                          f"[{s_lo}, {s_hi}] of {src_fm.shape[0]})")
     _, c, b = src_fm.shape
     rc = getattr(cuda_lib.lib(), name)(
         tgt_geo.data_ptr(), src_fm.data_ptr(), out_fm.data_ptr(),
         run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
         run_tgt.numel(), b, c, pair_s.shape[1], out_fm.shape[1],
+        cuda_lib.stream_ptr(out_fm.device))
+    cuda_lib.check(rc, name)
+    LAUNCHES[(kind, inst)] += 1
+    return True
+
+
+def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
+                out_fm, group: int, n_slots) -> bool:
+    """Run one K8/K9 launch on a gathered chunk; False when the chunk
+    has no real step. n_slots (P,) or None: slots of each step to
+    evaluate (the rest hold the inert row, which adds exactly zero)."""
+    paired = kind == "exec_pre_t2"
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry(kind, inst)
+    _one_cuda_device(name, tgt_geo, src_gathered, group_t, out_fm, n_slots)
+    p, gc, b = src_gathered.shape
+    if gc % group or group_t.shape[0] != p or b != tgt_geo.shape[2]:
+        raise ValueError(f"{name}: src_gathered {tuple(src_gathered.shape)}"
+                         f" is not (P={group_t.shape[0]}, G*C with G="
+                         f"{group}, B={tgt_geo.shape[2]})")
+    _check_layout(kernel, tgt_geo, out_fm, gc // group, paired,
+                  src_gathered=src_gathered)
+    if max(tgt_geo.shape[0], p) >= 2 ** 31:
+        raise ValueError("pair executor: sizes must fit in int32")
+    steps, run_tgt, run_off = _run_table(group_t)
+    if run_tgt.numel() == 0:
+        return False
+    _check_targets(name, run_tgt, tgt_geo.shape[0] // (2 if paired else 1))
+    slots = None
+    if n_slots is not None:
+        slots = n_slots[steps].to(torch.int32).contiguous()
+    steps = steps.to(torch.int32).contiguous()
+    rc = getattr(cuda_lib.lib(), name)(
+        tgt_geo.data_ptr(), src_gathered.data_ptr(), out_fm.data_ptr(),
+        run_tgt.data_ptr(), run_off.data_ptr(), steps.data_ptr(),
+        None if slots is None else slots.data_ptr(),
+        run_tgt.numel(), b, gc // group, group, out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
     LAUNCHES[(kind, inst)] += 1
@@ -207,8 +342,7 @@ def exec_pairs_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
         return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t, group_s,
                                 out_fm, final, core)
     if out_fm is None:
-        out_fm = tgt_geo.new_zeros((tgt_geo.shape[0], od8(kernel),
-                                    tgt_geo.shape[2]))
+        out_fm = _zeros_fm(kernel, tgt_geo)
     _launch("exec", kernel, core, tgt_geo, src_fm, group_t, group_s,
             out_fm)
     return _finish(kernel, out_fm, final)
@@ -230,3 +364,162 @@ def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     _launch("exec_t2", kernel, core, tgt_geo, src_fm, group_t, group_s,
             out_fm)
     return out_fm
+
+
+def exec_pairs_pre_cuda(kernel: Kernel, tgt_geo, src_gathered, group_t,
+                        out_fm=None, final: bool = True, core: str = "rm",
+                        group: int = GROUP, n_slots=None):
+    """Unpaired executor on pre-gathered sources: src_gathered (P, G*C, B)
+    holds step p's G source blocks contiguous, C rows each. CUDA tensors
+    launch K8, CPU tensors take exec_pairs_pre_torch. Adds into out_fm
+    (zeros when None) and returns it, or with final=True the point-major
+    (NN_t, B, OD) view.
+
+    K8 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre with
+    _body_pre. One CTA per run of a target row, sums in registers, one
+    write per run, like K1; what differs is the fetch: a CTA reads its
+    steps' blocks at src_gathered + step*G*C*B, contiguous and coalesced,
+    with no source-id load in front (csrc/pairs.cuh). The kernel reads a
+    body's lean rows at row stride C, so it takes the lean layout (C 5 for
+    grav3d, 4 for vort2d) and the layout padded to 8 alike; the derived
+    rows the reference's gather appends are for its tile bodies, which
+    switch path on the row count. Its bound is the larger of the pairs'
+    operations and the gathered bytes (PERF.md)."""
+    if tgt_geo.device.type == "cpu":
+        return exec_pairs_pre_torch(kernel, tgt_geo, src_gathered, group_t,
+                                    out_fm, final, core, group)
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    _launch_pre("exec_pre", kernel, core, tgt_geo, src_gathered, group_t,
+                out_fm, group, n_slots)
+    return _finish(kernel, out_fm, final)
+
+
+def exec_pairs_pre_cuda_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
+                           out_fm, core: str = "rm", group: int = GROUP,
+                           n_slots=None):
+    """Sibling-paired executor on pre-gathered sources, parent-keyed
+    steps. CUDA tensors launch K9, CPU tensors take
+    exec_pairs_pre_torch_t2. Adds into out_fm and returns it; rows 0 and
+    1 are never written.
+
+    K9 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre_t2 with
+    _body_pre_t2: K8's design, each staged block serving both sibling
+    rows, so one gathered block per step does the work of two."""
+    if tgt_geo.device.type == "cpu":
+        return exec_pairs_pre_torch_t2(kernel, tgt_geo, src_gathered,
+                                       group_t, out_fm, core, group)
+    _launch_pre("exec_pre_t2", kernel, core, tgt_geo, src_gathered, group_t,
+                out_fm, group, n_slots)
+    return out_fm
+
+
+# ------------------------------------------------------- pregather + doors
+
+def pregather_chunk(group: int, c: int, b: int) -> int:
+    """Steps per pregather chunk: the largest power of two whose gathered
+    buffer stays within PREGATHER_BYTES at C rounded up to 8 rows, at
+    least 1024 (reference pallas_pairs.py:894-897)."""
+    c8 = -(-c // 8) * 8
+    chunk = max(1024, PREGATHER_BYTES // (group * c8 * b * 4))
+    return 1 << (chunk.bit_length() - 1)
+
+
+def _pregather(kernel_name: str, src_fm, gs, b: int, pad8: bool = True,
+               out=None):
+    """One row gather: (P, G) block ids of src_fm (NN, C, B) ->
+    (P, G*C, B) contiguous source blocks.
+
+    pad8=True is the reference's pass (pallas_pairs.py:_pregather): lean
+    rows are padded to 8 with the DERIVED rows of the padded layout
+    (pad_fm_rows), never zeros where featurize puts a product. The
+    port's executors pass pad8=False: K8/K9 read only the lean rows, at
+    whatever row stride the buffer has, so the gathered bytes stay
+    C/8 of the padded ones. `out` (>= P*G, C, B) is a buffer to gather
+    into (pad8=False only)."""
+    p, g = gs.shape
+    ids = gs.reshape(-1)
+    if out is not None and not pad8:
+        srcs = torch.index_select(src_fm, 0, ids, out=out[:p * g])
+    else:
+        srcs = src_fm.index_select(0, ids)
+    if pad8:
+        srcs = pad_fm_rows(kernel_name, srcs)
+    return srcs.view(p, -1, b)
+
+
+def n_real_slots(group_s):
+    """(P,) slots of each step up to its last non-zero source id."""
+    g = group_s.shape[1]
+    pos = torch.arange(1, g + 1, device=group_s.device)
+    return ((group_s != 0) * pos).amax(dim=1)
+
+
+def _check_fetch(fetch: str):
+    if fetch not in PAIR_FETCHES:
+        raise ValueError(f"pair_fetch {fetch!r}: one of {PAIR_FETCHES}")
+
+
+def _exec_pregather(paired: bool, kernel, tgt_geo, src_fm, group_t, group_s,
+                    out_fm, core: str, twin: bool):
+    """Chunked pregather execution into out_fm: per chunk of steps one
+    row gather into a buffer allocated once, then one K8/K9 launch (or
+    the twin). Chunks are separate launches in stream order on one
+    accumulator, so a run cut by a chunk boundary resumes from its
+    partial sum (reference pallas_pairs.py:31-36)."""
+    p, g = group_s.shape
+    b = tgt_geo.shape[2]
+    chunk = pregather_chunk(g, src_fm.shape[1], b)
+    if twin:
+        run = exec_pairs_pre_torch_t2 if paired else exec_pairs_pre_torch
+    else:
+        run = exec_pairs_pre_cuda_t2 if paired else exec_pairs_pre_cuda
+    buf = src_fm.new_empty((min(p, chunk) * g,) + src_fm.shape[1:])
+    for i in range(0, p, chunk):
+        gt_c, gs_c = group_t[i:i + chunk], group_s[i:i + chunk]
+        src_c = _pregather(kernel.name, src_fm, gs_c, b, pad8=False,
+                           out=buf)
+        kw = {} if twin else dict(n_slots=n_real_slots(gs_c))
+        if not paired:
+            kw["final"] = False
+        run(kernel, tgt_geo, src_c, gt_c, out_fm, core=core, group=g, **kw)
+
+
+def exec_pairs(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
+               core: str = "rm", fetch: str = "pregather", out_fm=None,
+               final: bool = True, twin: bool = False):
+    """Unpaired grouped execution with the reference's fetch argument
+    (pallas_pairs.py:exec_pairs_pallas). 'pregather' gathers each chunk
+    of steps contiguous and runs K8; 'dma', 'dma_i', 'dma_p' and
+    'static' run K1, which fetches by source id. CPU tensors, or
+    twin=True, take the plain twins through the same chunking. Adds into
+    out_fm (zeros when None); final=True returns (NN_t, B, OD)."""
+    _check_fetch(fetch)
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    if fetch == "pregather":
+        _exec_pregather(False, kernel, tgt_geo, src_fm, group_t, group_s,
+                        out_fm, core, twin)
+        return _finish(kernel, out_fm, final)
+    run = exec_pairs_torch if twin else exec_pairs_cuda
+    return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, final,
+               core)
+
+
+def exec_pairs_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
+                  core: str = "rm", fetch: str = "dma_i",
+                  twin: bool = False):
+    """Sibling-paired grouped execution on parent-keyed steps
+    (pallas_pairs.py:exec_pairs_pallas_t2): 'pregather' runs K9, the
+    dma family K2; 'static' has no chained-accumulator form and is
+    refused. Adds into out_fm and returns it."""
+    _check_fetch(fetch)
+    if fetch == "static":
+        raise ValueError("sibling-paired lists need a dma-family or "
+                         "pregather pair_fetch")
+    if fetch == "pregather":
+        _exec_pregather(True, kernel, tgt_geo, src_fm, group_t, group_s,
+                        out_fm, core, twin)
+        return out_fm
+    run = exec_pairs_torch_t2 if twin else exec_pairs_cuda_t2
+    return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, core)

@@ -76,12 +76,14 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
     outputs in SORTED (tree) order, (nleaf*block_size, OD) including
     padded slots — the reference drivers' convention; map rows through
     plan.tgt_gidx. cfg.dtt_leaf_pair2 runs the leaf level through the
-    sibling-paired executor (on either backend)."""
+    sibling-paired executor (on either backend; K2 for a dma-family
+    pair_fetch, K9 for 'pregather'; 'static' has no paired form and
+    keeps the unpaired leaf level, reference dtt.py:213-224)."""
     check_supported(cfg, kernel)
     theta = cfg.theta_dtt if theta is None else theta
     stree, ttree = plan.stree, plan.ttree
-    use_p2 = (cfg.dtt_leaf_pair2 and stree.levels <= ttree.levels
-              and ttree.levels >= 1)
+    use_p2 = (cfg.dtt_leaf_pair2 and cfg.pair_fetch != "static"
+              and stree.levels <= ttree.levels and ttree.levels >= 1)
     n_live = plan.tgt_sorted.n_real
     pl2 = None
     with phase(timer, "lists"):

@@ -10,6 +10,11 @@ workload's body with cfg.core_func.
 Backends (config.pair_backend): 'auto' runs the CUDA kernels on CUDA
 tensors and the torch twins on CPU tensors, 'cuda' the kernels (raising
 on CPU tensors), 'torch' the twins.
+
+Fetch (config.pair_fetch, the reference's exec.py:252-292): 'pregather'
+gathers each chunk of steps contiguous and runs K8 (paired: K9);
+'dma', 'dma_i' and 'dma_p' run K1 (paired: K2), which fetch by source
+id; 'static' runs K1 and refuses a paired list, as the reference does.
 """
 
 from __future__ import annotations
@@ -23,25 +28,38 @@ from onbody_tpu_torch.traverse.lists import PairGroups, PairList, group_pairs
 from onbody_tpu_torch.utils.timing import phase
 
 
-def _executors(cfg, tgt_geo):
+def _use_twin(cfg, tgt_geo) -> bool:
     backend = pair_backend(cfg)
-    if backend == "torch":
-        return pp.exec_pairs_torch, pp.exec_pairs_torch_t2
     if backend == "cuda" and tgt_geo.device.type != "cuda":
         raise ValueError("pair_backend='cuda' needs CUDA tensors")
-    return pp.exec_pairs_cuda, pp.exec_pairs_cuda_t2
+    return backend == "torch"
+
+
+def _trim(pg: PairGroups) -> PairGroups:
+    """Drop the padding tail (groups are front-packed), so the executor
+    and the pregather pass visit real groups only. One host sync."""
+    n = int((pg.tgt != 0).sum())
+    return pg._replace(tgt=pg.tgt[:n], src=pg.src[:n])
 
 
 def _grouped(raw: PairList, cfg, slot_width: int,
              cap_groups_per_row: int) -> PairGroups:
-    """Group at the reference's static capacity, then trim the padding
-    tail (groups are front-packed) so the executor visits real groups."""
+    """Group at the reference's static capacity, then trim the tail."""
     g = cfg.pair_group
     n_rows = raw.tgt.shape[0] // slot_width
     cap = max(1024, n_rows * cap_groups_per_row * pp.GROUP // g)
-    pg = group_pairs(raw, cap, g, slot_width)
-    n = int((pg.tgt != 0).sum())
-    return pg._replace(tgt=pg.tgt[:n], src=pg.src[:n])
+    return _trim(group_pairs(raw, cap, g, slot_width))
+
+
+def exec_groups(kernel: Kernel, cfg, plan, pg: PairGroups):
+    """Run pre-grouped interactions (reference exec.py:exec_groups) and
+    return (out (NN_t, B, OD), pg)."""
+    twin = _use_twin(cfg, plan.tgt_geo)
+    trimmed = _trim(pg)
+    out = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm, trimmed.tgt,
+                        trimmed.src, cfg.core_func, fetch=cfg.pair_fetch,
+                        twin=twin)
+    return out, pg
 
 
 def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
@@ -50,19 +68,23 @@ def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
     """Run the builder's list (and the paired leaf list raw2) and return
     (out (NN_t, B, OD), info). info carries the interior groups, with
     the builder's combined n_valid and the summed overflow."""
-    run, run_t2 = _executors(cfg, plan.tgt_geo)
-    nn_t, _, b = plan.tgt_geo.shape
-    out_fm = plan.tgt_geo.new_zeros((nn_t, pp.od8(kernel), b))
+    twin = _use_twin(cfg, plan.tgt_geo)
+    fetch = cfg.pair_fetch
+    if raw2 is not None and fetch == "static":
+        raise ValueError("sibling-paired leaf lists need a dma-family or "
+                         "pregather pair_fetch")
     with phase(timer, "exec interior"):
         pg = _grouped(raw, cfg, slot_width, cap_groups_per_row)
-        run(kernel, plan.tgt_geo, plan.src_fm, pg.tgt, pg.src, out_fm,
-            final=False, core=cfg.core_func)
+        out_fm = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm, pg.tgt,
+                               pg.src, cfg.core_func, fetch=fetch,
+                               final=False, twin=twin)
     info = pg
     if raw2 is not None:
         with phase(timer, "exec leaf2"):
             pg2 = _grouped(raw2, cfg, slot_width, cap_groups_per_row)
-            run_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt, pg2.src,
-                   out_fm, core=cfg.core_func)
+            pp.exec_pairs_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt,
+                             pg2.src, out_fm, cfg.core_func, fetch=fetch,
+                             twin=twin)
         info = pg._replace(n_valid=raw.n_valid,
                            overflow=pg.overflow + pg2.overflow)
     return out_fm[:, :kernel.od, :].transpose(1, 2), info

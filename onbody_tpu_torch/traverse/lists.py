@@ -1,17 +1,19 @@
-"""Dual-tree interaction lists as dense, fixed-width frontier expansions
-(port of the level traversal of onbody_tpu/traverse/lists.py).
+"""Interaction lists as dense, fixed-width frontier expansions (port of
+the treecode traversal and the DTT level traversal of
+onbody_tpu/traverse/lists.py).
 
 Every target node keeps a row of `frontier_width` candidate source
-nodes; each level one MAC classification sorts the candidates into
-accept / defer-to-target-children, rows are front-compacted, and the
-accepted pairs are emitted. Node ids follow tree/build.py (root 1,
-children 2i/2i+1, leaves [nleaf, 2*nleaf)); a source node id is its row
-in the unified Blocks array and 0 is the inert pad row. Overflow of a
-fixed width is counted, never silent.
+nodes; each round one MAC classification sorts the candidates (treecode:
+accept / expand-children; DTT: accept / defer-to-target-children), rows
+are front-compacted, and the accepted pairs are emitted. Node ids follow
+tree/build.py (root 1, children 2i/2i+1, leaves [nleaf, 2*nleaf)); a
+source node id is its row in the unified Blocks array and 0 is the inert
+pad row. Overflow of a fixed width is counted, never silent.
 
-The MAC reads the source geometry quantized onto a shared 16-bit grid
-(the reference's mac_geometry='quant', which decides the lists);
-`mac_geometry='f32'` is not ported.
+The DTT MAC reads the source geometry quantized onto a shared 16-bit
+grid (the reference's mac_geometry='quant', which decides the lists);
+`mac_geometry='f32'` is not ported. The treecode MACs read float32
+geometry, as the reference's do.
 """
 
 from __future__ import annotations
@@ -72,6 +74,125 @@ def _append_rows(out, out_cnt, vals):
     overflow = (new_cnt - K).clamp(min=0).sum()
     return out, new_cnt.clamp(max=K), overflow
 
+
+# ------------------------------------------------------------------- MACs
+# cand (L, W) source node ids; tnc/tns (L, 1, PD) and tnr (L, 1) the
+# target leaves' box centers, sizes and radii; theta a float32 scalar
+# tensor. Each returns the (L, W) mask of candidates far enough to accept.
+
+def _center_dist(snc, cand, tnc):
+    d2 = None
+    for d in range(snc.shape[1]):
+        diff = snc[:, d][cand] - tnc[:, :, d]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    return torch.sqrt(d2)
+
+
+def mac_boxwise(stree: Tree, cand, tnc, tns, tnr, theta):
+    """treecode3 MAC (barneshut.hpp:250-283): box-center distance against
+    2 * (max(snr, tnr) + 0.25 * min(snr, tnr))."""
+    snr = stree.nr[cand]
+    dist = _center_dist(stree.nc, cand, tnc)
+    testrad = torch.maximum(snr, tnr) + 0.25 * torch.minimum(snr, tnr)
+    return dist / (2.0 * testrad) > theta
+
+
+def mac_pointwise_conservative(stree: Tree, cand, tnc, tns, tnr, theta):
+    """Leaf-conservative treecode2 MAC (barneshut.hpp:160-175): the least
+    distance from any point of the target leaf box (center distance minus
+    the target node radius) against 2 * snr, so acceptance holds for
+    every point of the block."""
+    snr = stree.nr[cand]
+    dist = (_center_dist(stree.nc, cand, tnc) - tnr).clamp(min=0.0)
+    return dist / (2.0 * snr) > theta
+
+
+def mac_treecode1_conservative(stree: Tree, cand, tnc, tns, tnr, theta):
+    """Leaf-conservative treecode1 surface-distance MAC
+    (barneshut.hpp:85-93): per-axis distance from the source box (centered
+    on its CM) to the nearest possible target point."""
+    snr = stree.nr[cand]
+    d2 = None
+    for d in range(stree.nc.shape[1]):
+        dd = ((stree.x[:, d][cand] - tnc[:, :, d]).abs()
+              - 0.5 * stree.ns[:, d][cand] - 0.5 * tns[:, :, d]
+              ).clamp(min=0.0)
+        d2 = dd * dd if d2 is None else d2 + dd * dd
+    return torch.sqrt(d2) / (2.0 * snr) > theta
+
+
+_MACS = {
+    "boxwise": mac_boxwise,
+    "pointwise": mac_pointwise_conservative,
+    "treecode1": mac_treecode1_conservative,
+}
+
+
+# ------------------------------------------------- single-tree traversal
+
+def _treecode_lists(stree: Tree, ttree: Tree, theta: float, mac: str,
+                    frontier_width: int, list_width: int):
+    """Per-target-leaf accepted source rows (reference _treecode_lists):
+    far nodes that pass the MAC (proxies or monopoles) and near source
+    leaves (direct), in one list because both are rows of the unified
+    block array. Returns (out (L, K), counts (L,), overflow)."""
+    nleaf_s, nleaf_t = stree.nleaf, ttree.nleaf
+    W, K = frontier_width, list_width
+    dev = ttree.x.device
+    mac_fn = _MACS[mac]
+    th = torch.tensor(theta, dtype=torch.float32, device=dev)
+    tnc = ttree.nc[nleaf_t:][:, None, :]
+    tns = ttree.ns[nleaf_t:][:, None, :]
+    tnr = ttree.nr[nleaf_t:][:, None]
+    # dead target leaves (pure padding, outputs discarded) start empty
+    cand = torch.zeros((nleaf_t, W), dtype=torch.int64, device=dev)
+    cand[:, 0] = ttree.alive[nleaf_t:].to(torch.int64)
+    out = cand.new_zeros((nleaf_t, K + 1))
+    out_cnt = cand.new_zeros((nleaf_t,))
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(stree.levels + 1):
+        valid = cand != 0
+        passes = mac_fn(stree, cand, tnc, tns, tnr, th)
+        is_leaf = cand >= nleaf_s
+        accept = valid & (passes | is_leaf)
+        expand = valid & ~passes & ~is_leaf
+        out, out_cnt, ov1 = _append_rows(out, out_cnt,
+                                         torch.where(accept, cand, 0))
+        kids = torch.cat([torch.where(expand, 2 * cand, 0),
+                          torch.where(expand, 2 * cand + 1, 0)], dim=1)
+        cand, ov2 = _compact_rows(kids, W)
+        overflow = overflow + ov1 + ov2
+    # leaves always terminate: anything left in cand is counted as overflow
+    overflow = overflow + (cand != 0).sum()
+    return out[:, :K], out_cnt, overflow
+
+
+def _ext_src(out, nleaf_s: int, parts: int):
+    """Extension-row ids of accepted interior sources whose proxy grid
+    spans `parts` block rows (reference _ext_src)."""
+    if parts == 1:
+        return out
+    raise NotImplementedError("split equivalent rows (a proxy grid wider "
+                              "than the block) are not ported yet "
+                              "(ROADMAP.md Queue 1 item 11)")
+
+
+def build_treecode_pairs(stree: Tree, ttree: Tree, theta: float, mac: str,
+                         frontier_width: int = 256, list_width: int = 1024,
+                         src_parts: int = 1) -> PairList:
+    """The (tgt_leaf_row, src_row) pair list of a treecode sweep; slot
+    width list_width."""
+    out, cnt, ov = _treecode_lists(stree, ttree, theta, mac, frontier_width,
+                                   list_width)
+    out = _ext_src(out, stree.nleaf, src_parts)
+    nleaf_t = ttree.nleaf
+    tgt = torch.arange(nleaf_t, 2 * nleaf_t, dtype=torch.int64,
+                       device=out.device)[:, None].expand_as(out)
+    return PairList(tgt=tgt.reshape(-1), src=out.reshape(-1),
+                    n_valid=cnt.sum(), overflow=ov)
+
+
+# --------------------------------------------------- dual-tree traversal
 
 def _quant_u16(v: torch.Tensor) -> torch.Tensor:
     """Grid-unit value rounded onto the 16-bit grid (as float32)."""

@@ -9,8 +9,10 @@ grandparents', one batched per-dimension factor contraction per level.
 Output is the unified `Blocks` array: row i holds node i's proxies if
 interior, its particles if a leaf; row 0 is the inert pad row (position
 0, RADIUS 1, zero strength), so padded pair lists contribute nothing and
-no pair meets rsqrt(0). Split equivalent rows (M wider than a row,
-n_eq_parts > 1) are not ported (ROADMAP item 11).
+no pair meets rsqrt(0). `barycentric_fm` / `target_geo_fm` build the
+executors' feature-major layouts directly (the lean plan). Split
+equivalent rows (M wider than a row, n_eq_parts > 1) are not ported
+(ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from onbody_tpu_torch.ops.kernels import featurize
 from onbody_tpu_torch.parts import Parts
 from onbody_tpu_torch.tree.build import Tree
 
@@ -153,6 +156,34 @@ def _check_one_part(width: int, order: int, pd: int) -> None:
             "yet (ROADMAP.md Queue 1 item 11)")
 
 
+def _proxy_levels(tree: Tree, x, r, s, order: int):
+    """Interior levels bottom-up: yields (rows, nc, grid, eq_s, r_first)
+    per level, the level's row slice, node centers (nseg, PD), proxy
+    grid (nseg, M, PD), anterpolated proxy strengths (nseg, M, SD) and
+    the radius of each node's first particle (the proxies' radius,
+    ref :349-354). s None (targets) yields eq_s None."""
+    pd = x.shape[1]
+    M = (order + 1) ** pd
+    n_pad = x.shape[0]
+    child_pos = child_str = eq_s = None
+    for l in range(tree.levels - 1, -1, -1):
+        nseg = 1 << l
+        sl = tree.level_slice(l)
+        nc_l, ns_l = tree.nc[sl], tree.ns[sl]
+        grid = _grid_positions(nc_l, ns_l, order)        # (nseg, M, pd)
+        if s is not None:
+            sd = s.shape[1]
+            if l == tree.levels - 1:
+                src_pos = x.view(nseg, n_pad >> l, pd)
+                src_str = s.view(nseg, n_pad >> l, sd)
+            else:
+                src_pos = child_pos.reshape(nseg, 2 * M, pd)
+                src_str = child_str.reshape(nseg, 2 * M, sd)
+            eq_s = anterp_factored(src_pos, nc_l, ns_l, order, src_str)
+        yield sl, nc_l, grid, eq_s, r.view(nseg, n_pad >> l)[:, :1]
+        child_pos, child_str = grid, eq_s
+
+
 def barycentric_blocks(tree: Tree, sorted_parts: Parts,
                        order: int) -> Blocks:
     """Unified source Blocks with barycentric-Lagrange interior proxies
@@ -165,7 +196,6 @@ def barycentric_blocks(tree: Tree, sorted_parts: Parts,
     _check_one_part(width, order, pd)
     M = (order + 1) ** pd
     nleaf, bs = tree.nleaf, tree.block_size
-    n_pad = x.shape[0]
     nn = 2 * nleaf
     pos = x.new_zeros((nn, width, pd))
     rad = x.new_ones((nn, width))
@@ -173,26 +203,11 @@ def barycentric_blocks(tree: Tree, sorted_parts: Parts,
     pos[nleaf:, :bs] = x.view(nleaf, bs, pd)
     rad[nleaf:, :bs] = r.view(nleaf, bs)
     st[nleaf:, :bs] = s.view(nleaf, bs, sd)
-
-    child_pos = child_str = None
-    for l in range(tree.levels - 1, -1, -1):
-        nseg = 1 << l
-        sl = tree.level_slice(l)
-        nc_l, ns_l = tree.nc[sl], tree.ns[sl]
-        grid = _grid_positions(nc_l, ns_l, order)        # (nseg, M, pd)
-        if l == tree.levels - 1:
-            src_pos = x.view(nseg, n_pad >> l, pd)
-            src_str = s.view(nseg, n_pad >> l, sd)
-        else:
-            src_pos = child_pos.reshape(nseg, 2 * M, pd)
-            src_str = child_str.reshape(nseg, 2 * M, sd)
-        eq_s = anterp_factored(src_pos, nc_l, ns_l, order, src_str)
+    for sl, nc_l, grid, eq_s, r_first in _proxy_levels(tree, x, r, s, order):
         pos[sl, :M] = grid
         pos[sl, M:] = nc_l[:, None, :]
         st[sl, :M] = eq_s
-        # proxy radius: the node's first particle (ref :349-354)
-        rad[sl] = r.view(nseg, n_pad >> l)[:, :1]
-        child_pos, child_str = grid, eq_s
+        rad[sl] = r_first
     return Blocks(pos=pos, rad=rad, s=st)
 
 
@@ -208,15 +223,80 @@ def target_blocks(tree: Tree, sorted_targs: Parts, order: int) -> Blocks:
     _check_one_part(width, order, pd)
     M = (order + 1) ** pd
     nleaf, bs = tree.nleaf, tree.block_size
-    n_pad = x.shape[0]
     pos = x.new_zeros((2 * nleaf, width, pd))
     rad = x.new_ones((2 * nleaf, width))
     pos[nleaf:, :bs] = x.view(nleaf, bs, pd)
     rad[nleaf:, :bs] = r.view(nleaf, bs)
-    for l in range(tree.levels - 1, -1, -1):
-        sl = tree.level_slice(l)
-        nc_l = tree.nc[sl]
-        pos[sl, :M] = _grid_positions(nc_l, tree.ns[sl], order)
+    for sl, nc_l, grid, _, r_first in _proxy_levels(tree, x, r, None, order):
+        pos[sl, :M] = grid
         pos[sl, M:] = nc_l[:, None, :]
-        rad[sl] = r.view(1 << l, n_pad >> l)[:, :1]
+        rad[sl] = r_first
     return Blocks(pos=pos, rad=rad, s=None)
+
+
+# ------------------------------------------------ lean feature-major path
+# The executors read only the feature-major (NN, C, B) sources and the
+# (NN, 8, B) target geometry. These functions write those layouts directly,
+# level by level, without the point-major Blocks (SolverConfig.lean_plan).
+# Rows are block_size wide here (the Blocks path rounds the width up to a
+# multiple of 128), so a grid wider than the block raises as split rows.
+
+def _parked(grid, nc_l, width: int):
+    """(nseg, width, PD): the grid, then unused slots at the node center."""
+    nseg, m, pd = grid.shape
+    return torch.cat([grid, nc_l[:, None, :].expand(nseg, width - m, pd)], 1)
+
+
+def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
+                   kernel_name: str, pad8: bool = True, flat: bool = False,
+                   leaf_chunk: int = 4096) -> torch.Tensor:
+    """Feature-major source blocks (NN, C, B) with barycentric proxies,
+    equal row for row to featurize(barycentric_blocks(...), pad8) where
+    the block size is a multiple of 128 (reference barycentric_fm).
+    pad8=False stores the lean rows (grav3d 5, vort2d 4). Row 0 is the
+    inert row FEATURIZED (position 0, radius 1, zero strength), never
+    all-zero. flat=True returns the (NN, C*B) view of the same memory.
+    Leaves are featurized leaf_chunk at a time, which bounds the
+    temporary beside the output."""
+    x, r, s = sorted_parts.x, sorted_parts.r, sorted_parts.s
+    pd, sd = x.shape[1], s.shape[1]
+    width = tree.block_size
+    _check_one_part(width, order, pd)
+    nleaf = tree.nleaf
+    safe0 = featurize(kernel_name, x.new_zeros((1, width, pd)),
+                      x.new_ones((1, width)), x.new_zeros((1, width, sd)),
+                      pad8)
+    fm = x.new_zeros((2 * nleaf,) + safe0.shape[1:])
+    fm[0] = safe0[0]
+    xb, rb, sb = (x.view(nleaf, width, pd), r.view(nleaf, width),
+                  s.view(nleaf, width, sd))
+    for lo in range(0, nleaf, leaf_chunk):
+        hi = min(lo + leaf_chunk, nleaf)
+        fm[nleaf + lo:nleaf + hi] = featurize(kernel_name, xb[lo:hi],
+                                              rb[lo:hi], sb[lo:hi], pad8)
+    for sl, nc_l, grid, eq_s, r_first in _proxy_levels(tree, x, r, s, order):
+        nseg, m = eq_s.shape[:2]
+        st_w = torch.cat([eq_s, eq_s.new_zeros((nseg, width - m, sd))], 1)
+        fm[sl] = featurize(kernel_name, _parked(grid, nc_l, width),
+                           r_first.expand(nseg, width), st_w, pad8)
+    return fm.view(2 * nleaf, -1) if flat else fm
+
+
+def target_geo_fm(tree: Tree, sorted_targs: Parts,
+                  order: int) -> torch.Tensor:
+    """(NN, 8, B) target geometry [pos | radius | 0..] built directly
+    (reference target_geo_fm): rows 1.. equal
+    build_tgt_geo(target_blocks(...)); row 0 is all zero here (the Blocks
+    path gives it radius 1; no executor reads it as a target)."""
+    x, r = sorted_targs.x, sorted_targs.r
+    pd = x.shape[1]
+    width = tree.block_size
+    _check_one_part(width, order, pd)
+    nleaf = tree.nleaf
+    geo = x.new_zeros((2 * nleaf, 8, width))
+    geo[nleaf:, :pd] = x.view(nleaf, width, pd).transpose(1, 2)
+    geo[nleaf:, pd] = r.view(nleaf, width)
+    for sl, nc_l, grid, _, r_first in _proxy_levels(tree, x, r, None, order):
+        geo[sl, :pd] = _parked(grid, nc_l, width).transpose(1, 2)
+        geo[sl, pd] = r_first
+    return geo

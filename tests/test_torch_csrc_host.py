@@ -215,6 +215,89 @@ def test_host_k4_matches_twin(host_lib, name, core):
     assert rms <= REL_RMS and mx <= MAX_REL
 
 
+def _run_pre(lib, kind, kernel, core, tgt_geo, src_gathered, gt, out,
+             group, n_slots=None):
+    steps, run_tgt, run_off = cuda_pairs._run_table(gt)
+    slots = None if n_slots is None else n_slots[steps].int().contiguous()
+    steps = steps.int().contiguous()
+    _, gc, b = src_gathered.shape
+    return _entry(lib, kind, kernel.name, core)(
+        tgt_geo.data_ptr(), src_gathered.data_ptr(), out.data_ptr(),
+        run_tgt.data_ptr(), run_off.data_ptr(), steps.data_ptr(),
+        None if slots is None else slots.data_ptr(), run_tgt.numel(), b,
+        gc // group, group, out.shape[1], None)
+
+
+@pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k8_matches_twin_and_k1(host_lib, name, core, pad8):
+    """K8 on a gathered buffer of lean rows and of rows padded to 8, in
+    two launches cut inside the run of target 1, with and without the
+    slot counts: equal to its twin within the kernel limits and to K1 on
+    the same groups exactly (the same order of sums)."""
+    kernel = get_kernel(name)
+    b, group = 32, 8
+    g = torch.Generator().manual_seed(5)
+    pos = torch.rand((16, b, kernel.pd), generator=g)
+    rad = 0.03 + 0.04 * torch.rand((16, b), generator=g)
+    s = torch.randn((16, b, kernel.sd), generator=g) / b
+    pos[0], rad[0], s[0] = 0.0, 1.0, 0.0
+    src_fm = featurize(name, pos, rad, s, pad8=pad8).contiguous()
+    tgt_geo = cuda_pairs.build_tgt_geo(pos, rad).contiguous()
+    gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0], seed=6)
+    gathered = cuda_pairs._pregather(name, src_fm, gs, b, pad8=False)
+    assert gathered.shape == (10, group * src_fm.shape[1], b)
+    twin = cuda_pairs.exec_pairs_pre_torch(kernel, tgt_geo, gathered, gt,
+                                           final=False, core=core,
+                                           group=group)
+    k1 = torch.zeros((16, cuda_pairs.od8(kernel), b))
+    assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, src_fm, gt,
+                     gs, k1) == 0
+    for slots in (None, cuda_pairs.n_real_slots(gs)):
+        out = torch.zeros_like(k1)
+        for lo, hi in ((0, 6), (6, 10)):        # target 1's run is cut
+            assert _run_pre(host_lib, "exec_pre", kernel, core, tgt_geo,
+                            gathered[lo:hi].contiguous(), gt[lo:hi], out,
+                            group, None if slots is None
+                            else slots[lo:hi]) == 0
+        assert torch.isfinite(out).all()
+        rms, mx = _errors(out, twin)
+        assert rms <= REL_RMS and mx <= MAX_REL
+        assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()
+        # rows not cut by the launch boundary: K1's sums in K1's order
+        assert torch.equal(out[torch.tensor([3, 5, 9])],
+                           k1[torch.tensor([3, 5, 9])])
+        rms, mx = _errors(out[1], k1[1])
+        assert rms <= REL_RMS and mx <= MAX_REL
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k9_matches_twin_and_keeps_root(host_lib, name, core):
+    kernel = get_kernel(name)
+    b, group = 32, 8
+    src_fm, tgt_geo = _blocks(kernel, seed=7)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups([1, 1, 2, 0, 3, 5, 0, 7], seed=8)
+    gathered = cuda_pairs._pregather(name, lean, gs, b, pad8=False)
+    out = torch.zeros((16, cuda_pairs.od8(kernel), b))
+    out[1] = 7.25
+    twin, k2 = out.clone(), out.clone()
+    for lo, hi in ((0, 1), (1, 8)):             # parent 1's run is cut
+        assert _run_pre(host_lib, "exec_pre_t2", kernel, core, tgt_geo,
+                        gathered[lo:hi].contiguous(), gt[lo:hi], out, group,
+                        cuda_pairs.n_real_slots(gs)[lo:hi]) == 0
+    cuda_pairs.exec_pairs_pre_torch_t2(kernel, tgt_geo, gathered, gt, twin,
+                                       core=core, group=group)
+    assert _run_exec(host_lib, "exec_t2", kernel, core, tgt_geo, src_fm,
+                     gt, gs, k2) == 0
+    rms, mx = _errors(out[2:], twin[2:])
+    assert rms <= REL_RMS and mx <= MAX_REL
+    assert (out[1] == 7.25).all() and not out[0].any()
+    assert torch.equal(out[4:], k2[4:])         # parents 2, 3, 5, 7
+    rms, mx = _errors(out[2:4], k2[2:4])
+    assert rms <= REL_RMS and mx <= MAX_REL
+
+
 def test_host_library_exports_every_entry(host_lib):
     for name, core in INSTANCES:
         for kind in cuda_lib.KINDS:

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card (K1, K2 pair executors; K4 direct)
-against their plain twins and the fp64 oracle, for every (workload, core)
-instantiation, and the slice on the card against the slice on the CPU for
-every workload. Every test needs a CUDA device and skips without one.
+"""The port's CUDA kernels on the card (K1, K2 pair executors; K8, K9
+the same on pre-gathered sources; K4 direct) against their plain twins
+and the fp64 oracle, for every (workload, core) instantiation, and the
+slice on the card against the slice on the CPU for every workload. Every
+test needs a CUDA device and skips without one.
 This file imports no jax, so on the GPU machine it runs without the
 reference package's conftest:
 
@@ -107,6 +108,84 @@ def test_k2_matches_twin_and_keeps_root(dev, name, core):
     assert bool((out[1] == 7.25).all()) and not out[0].any()
 
 
+@pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k8_matches_twin_and_k1(dev, name, core, pad8):
+    """K8 on lean rows and rows padded to 8, through the chunked front
+    door with the list cut inside a run: its twin's result within the
+    kernel limit, K1's on the same groups."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    if not pad8:
+        src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0])
+    key = ("exec_pre", cuda_lib.instance(name, core))
+    before = cuda_pairs.LAUNCHES[key]
+    one = cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core=core,
+                                fetch="pregather")
+    assert cuda_pairs.LAUNCHES[key] == before + 1
+    twin = cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core=core,
+                                 fetch="pregather", twin=True)
+    k1 = cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core=core,
+                               fetch="dma_i")
+    gathered = cuda_pairs._pregather(name, src_fm, gs, B, pad8=False)
+    two = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+    for lo, hi in ((0, 6), (6, 10)):            # target 1's run is cut
+        cuda_pairs.exec_pairs_pre_cuda(kernel, tgt_geo, gathered[lo:hi],
+                                       gt[lo:hi], two, final=False,
+                                       core=core)
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[key] == before + 3
+    assert torch.isfinite(one).all()
+    assert scale_rel_max(one[1:].cpu(), twin[1:].cpu()) < 1e-4
+    assert torch.equal(one, k1)
+    two = two[:, :kernel.od].transpose(1, 2)
+    assert scale_rel_max(two[1:].cpu(), twin[1:].cpu()) < 1e-4
+    assert not one[torch.tensor([0, 2, 4, 6, 7, 8], device=dev)].any()
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k9_matches_twin_and_keeps_root(dev, name, core):
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups(dev, [1, 1, 2, 3, 5, 0, 7, 0])
+    out = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+    out[1] = 7.25
+    twin, k2 = out.clone(), out.clone()
+    key = ("exec_pre_t2", cuda_lib.instance(name, core))
+    before = cuda_pairs.LAUNCHES[key]
+    cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, out, core=core,
+                             fetch="pregather")
+    cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, twin,
+                             core=core, fetch="pregather", twin=True)
+    cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, k2, core=core,
+                             fetch="dma_i")
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[key] == before + 1
+    assert scale_rel_max(out[2:].cpu(), twin[2:].cpu()) < 1e-4
+    assert torch.equal(out, k2)
+    assert bool((out[1] == 7.25).all()) and not out[0].any()
+
+
+def test_pre_kernels_refuse_bad_input(dev):
+    src_fm, tgt_geo = _blocks(dev)
+    gt, gs = _groups(dev, [1, 1, 0, 1])
+    gathered = cuda_pairs._pregather("grav3d", src_fm, gs, B, pad8=False)
+    with pytest.raises(ValueError, match="two separate runs"):
+        cuda_pairs.exec_pairs_pre_cuda(KER, tgt_geo, gathered, gt)
+    with pytest.raises(ValueError, match="out of range"):
+        cuda_pairs.exec_pairs_pre_cuda_t2(
+            KER, tgt_geo, gathered, torch.tensor([8, 0, 0, 0], device=dev),
+            torch.zeros((16, 8, B), device=dev))
+    with pytest.raises(ValueError, match="is not"):
+        cuda_pairs.exec_pairs_pre_cuda(KER, tgt_geo, gathered[:, :-1],
+                                       torch.tensor([1, 0, 0, 0],
+                                                    device=dev))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_pairs.exec_pairs_pre_cuda(KER, tgt_geo, gathered, gt.cpu())
+
+
 def test_kernels_refuse_bad_lists(dev):
     src_fm, tgt_geo = _blocks(dev)
     gs = torch.ones((4, 8), dtype=torch.int64, device=dev)
@@ -141,6 +220,49 @@ def test_k4_matches_twin_and_oracle(dev, name, core):
     assert rel_rms(got.cpu(), twin) < 1e-5
     orc = direct.direct_oracle(kernel, srcs, targs, core=core)
     assert rel_rms(got.cpu(), orc) < 1e-5
+
+
+@pytest.mark.parametrize("name", ["vort2d", "vortgrad3d"])
+def test_api_on_card_matches_cpu(dev, name):
+    """The library API on the card (device=None) against device='cpu':
+    K8 launched, K1 not."""
+    from onbody_tpu_torch.api import solver
+    kernel = get_kernel(name)
+    sx, sr, ss, _, _ = kernel_inputs(kernel, 61, 3000)
+    if name == "vort2d":
+        args, kw = (sx[:, 0], sx[:, 1], ss[:, 0], sr, sx[:, 0],
+                    sx[:, 1]), dict(tr=sr)
+        fn = solver.vel_solver_2d
+    else:
+        args, kw = (*sx.T, *ss.T, sr, *sx.T), {}
+        fn = solver.vel_solver_3dvortgrads
+    inst = cuda_lib.instance(name, "rm")
+    before = dict(cuda_pairs.LAUNCHES)
+    got = fn(*args, **kw)
+    assert cuda_pairs.LAUNCHES[("exec_pre", inst)] > before.get(
+        ("exec_pre", inst), 0)
+    assert cuda_pairs.LAUNCHES[("exec", inst)] == before.get(("exec", inst),
+                                                             0)
+    ref = fn(*args, **kw, device="cpu")
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and rel_rms(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize("method", ["solve_treecode3", "solve_treecode2",
+                                    "solve_treecode1"])
+def test_treecodes_on_card_match_cpu(dev, method):
+    sx, sr, ss, tx, tr = kernel_inputs(KER, 62, 3000)
+    srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
+    cfg = SolverConfig(block_size=64, order=4, frontier_width=256,
+                       list_width=512)
+    solve = getattr(treecode, method)
+    cpu_out, cpu_info = solve(KER, cfg, treecode.prepare(KER, cfg, srcs,
+                                                         targs))
+    out, info = solve(KER, cfg, treecode.prepare(KER, cfg, _to(srcs, dev),
+                                                 _to(targs, dev)))
+    assert int(info.overflow) == int(cpu_info.overflow) == 0
+    assert int(info.n_valid) == int(cpu_info.n_valid)
+    assert rel_rms(out.cpu(), cpu_out) <= 1e-5
 
 
 @pytest.mark.parametrize("name", WORKLOADS)

@@ -103,3 +103,21 @@ def test_needed_ops_match_body_header(name):
                   r"[\s/]+and[\s/]+(\d+)[\s/]+MUFU", text)
     assert m is not None
     assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS[name]
+
+
+def test_every_kernel_kind_has_a_sass_name():
+    """sass_report walks cuda_lib.KINDS: each kind names its template,
+    and the executors on pre-gathered sources (exec_pre_runs) are told
+    apart from the id-fetching ones (exec_runs)."""
+    from onbody_tpu_torch.ops import cuda_lib
+    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS)
+    assert set(cs.SOURCE) == set(cs.REPLACES) == set(cuda_lib.KINDS)
+    pre = LISTING.replace("9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_",
+                          "13exec_pre_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_"
+                          "S6_S6_i")
+    loops = cs.sass_loops(pre)
+    assert cs.sass_issued(loops, "exec_pre", "grav3d")["pairs_per_iter"] == 2
+    with pytest.raises(LookupError):
+        cs.sass_issued(loops, "exec", "grav3d")
+    with pytest.raises(LookupError):
+        cs.sass_issued(loops, "exec_pre_t2", "grav3d")
