@@ -5,21 +5,27 @@ so a configuration written for one package reads the same in the other.
 
 Keys that are TPU schedules of the same result are accepted and run the
 one torch path: `tree_paired`, `tree_defer_rs`, `tree_fuse`, the
-`tree_span_top` prefix slicing, `tree_bisect_group`, `list_compact`,
-`group_compact`, `pair_tile_g`, `mac_geometry` packing (the 16-bit
-quantized MAC geometry itself is kept, it decides the pair lists),
-`d2_mode` and `mxu_precision` (distances and contractions are always
-full fp32).
+`tree_span_top` prefix slicing, `tree_bisect_group`, `group_compact`,
+`pair_tile_g`, `mac_geometry` packing (the 16-bit quantized MAC geometry
+itself is kept, it decides the pair lists), `d2_mode` and
+`mxu_precision` (distances and contractions are always full fp32).
+
+`list_compact` orders the rows of the DTT lists as the reference does:
+`"scatter"` and `"sort"` keep each row's entries in order (the two
+movers give identical rows), `"idsort"` sorts them by ascending id, so
+sibling blocks sit in adjacent slots for the bundled fetch `"dma_p"`.
 
 `pair_fetch` chooses the executor kernel as it does in the reference:
 `"pregather"` (the default) gathers each chunk of steps contiguous and
-runs K8 (K9 for the sibling-paired leaf list); `"dma"`, `"dma_i"` and
-`"dma_p"` run K1 (K2), which fetch source blocks by id — the
-reference's three issue schedules of that kernel are one kernel here;
-`"static"` runs K1 and refuses a paired list. `lean_plan` builds the
-feature-major arrays directly, without point-major Blocks; with a
-dma-family fetch it stores the rows padded to 8, with `"pregather"`
-the lean rows (reference treecode.py:112-125).
+runs K8 (K9 for the sibling-paired leaf list); `"dma_i"` runs K1 (K2),
+which fetches source blocks by id with plain loads; `"dma"` runs K10
+(bulk asynchronous copies by id) and `"dma_p"` K11 (the same, adjacent
+ids bundled into one copy), both with K2 for the paired leaf list;
+`"static"` gathers each chunk, runs K12 (one CTA per step, per-step
+rows segment-added into the accumulator) and refuses a paired list.
+`lean_plan` builds the feature-major arrays directly, without
+point-major Blocks; with a dma-family fetch it stores the rows padded
+to 8, otherwise the lean rows (reference treecode.py:112-125).
 
 Keys that change the result, or belong to paths this port does not run
 yet, raise NotImplementedError naming their ROADMAP item
@@ -36,6 +42,7 @@ import torch
 # pair_backend values of the port; the reference's "pallas" maps to "cuda"
 PAIR_BACKENDS = ("auto", "cuda", "torch")
 PAIR_FETCHES = ("pregather", "dma", "dma_i", "dma_p", "static")
+LIST_COMPACTS = ("scatter", "sort", "idsort")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +132,9 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
     if cfg.pair_fetch not in PAIR_FETCHES:
         raise ValueError(f"pair_fetch {cfg.pair_fetch!r}: one of "
                          f"{PAIR_FETCHES}")
+    if cfg.list_compact not in LIST_COMPACTS:
+        raise ValueError(f"list_compact {cfg.list_compact!r}: one of "
+                         f"{LIST_COMPACTS}")
     if cfg.dtt_traversal != "level":
         no(f"dtt_traversal={cfg.dtt_traversal!r}", 11)
     if cfg.dtt_lists != "rows":

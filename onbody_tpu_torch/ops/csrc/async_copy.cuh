@@ -1,0 +1,70 @@
+// The asynchronous copy of the fetch kernels K10 and K11 (pairs.cuh):
+// one thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk)
+// of contiguous global memory into shared memory, and the copy reports
+// its bytes to an mbarrier in shared memory that the readers wait on.
+// Nothing else lives here: the host emulation of the sources
+// (tests/test_torch_csrc_host.py) swaps this one header for a
+// synchronous version.
+//
+// Contract: addresses and sizes are multiples of 16 bytes; each mbarrier
+// is initialised with an arrival count of 1, and each use of it is one
+// expect_copy() (the arrival, with the bytes to come) plus the copies of
+// those bytes, waited on once with the parity of that use.
+#pragma once
+
+#include <stdint.h>
+
+namespace onbody {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread, before any use; then a __syncthreads() publishes it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The arrival of this use of `bar`, announcing `bytes` to come.
+__device__ __forceinline__ void expect_copy(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Orders this CTA's earlier ordinary accesses of shared memory before
+// later copies into it (the copy engine is another memory proxy).
+__device__ __forceinline__ void fence_before_copy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst_smem,
+                                          const float* src_gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst_smem)),
+      "l"(src_gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Blocks until the use of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+}  // namespace onbody

@@ -7,10 +7,12 @@
 //   kUnroll/kUnroll2 unroll of block() and block2();
 //   Tgt load_tgt(g, stride)  a target from a feature-major column
 //                    [pos | radius] whose rows lie `stride` floats apart;
+//   staged(r, v)     the staged value of fm row r, with any per-source
+//                    term of the core precomputed; kRawStage when it is
+//                    v for every row;
 //   stage(col, stride, sm, sm_stride)  one source point: reads the
 //                    reference's lean feature-major rows (ops/kernels.py
-//                    featurize) at `col` and writes its kRows staged rows,
-//                    with any per-source term of the core precomputed;
+//                    featurize) at `col` and writes its kRows staged rows;
 //   Src load_src(sm, stride)  one staged source from shared memory;
 //   pair(src, tgt, acc)  adds the pair's contribution into acc[kOut].
 // Everything is fp32 FMA work per pair (no factored moments): there is

@@ -1,4 +1,4 @@
-// K1, K2, K4, K8 and K9 with the grav3d body (one translation unit per
+// K1, K2, K4, K8-K12 with the grav3d body (one translation unit per
 // workload, so the build compiles the workloads in parallel).
 #include "entries.cuh"
 #include "grav3d_body.cuh"

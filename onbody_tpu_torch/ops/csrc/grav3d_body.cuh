@@ -36,6 +36,10 @@ struct Grav3d {
     return {g[0], g[stride], g[2 * stride]};
   }
 
+  // the staged value of fm row r: the rows are staged as they are
+  static constexpr bool kRawStage = true;
+  __device__ static float staged(int, float v) { return v; }
+
   __device__ static void stage(const float* __restrict__ col,
                                int64_t stride, float* sm, int sm_stride) {
 #pragma unroll

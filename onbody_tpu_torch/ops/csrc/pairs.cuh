@@ -1,7 +1,9 @@
 // Grouped pair executors, templated on the per-pair body (body.cuh), one
 // instantiation per (workload, core): K1 (unpaired) and K2 (sibling-paired)
 // fetch their source blocks by id; K8 and K9 (further down) compute the
-// same sums from source blocks gathered contiguous per step.
+// same sums from source blocks gathered contiguous per step; K10 and K11
+// fetch by id with bulk asynchronous copies, K11 two adjacent blocks per
+// copy; K12 gives every step its own output row.
 //
 // Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk with
 // _body_interleaved (K1) and :_exec_chunk_t2 with _body_interleaved_t2
@@ -37,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "body.cuh"
 
 namespace onbody {
@@ -154,6 +157,45 @@ int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
 
 constexpr int kPreStageBytes = 32 * 1024;
 
+// One step's first n gathered blocks (src, C rows of B floats each) summed
+// onto a0 (and a1), `stage` blocks staged per barrier pair, each block
+// into its own partial in slot order.
+template <class Body, bool kPaired>
+__device__ __forceinline__ void sum_gathered(
+    const float* __restrict__ src, int n, int B, int C, int stage,
+    float* sm, bool act, const typename Body::Tgt& t0,
+    const typename Body::Tgt& t1, float (&a0)[Body::kOut],
+    float (&a1)[Body::kOut]) {
+  const int sm_stride = stage * B;
+  for (int j0 = 0; j0 < n; j0 += stage) {  // n is uniform across the CTA
+    const int cnt = (n - j0) < stage ? (n - j0) : stage;
+    __syncthreads();  // the previous blocks' readers are done
+    for (int k = threadIdx.x; k < cnt * B; k += blockDim.x) {
+      const int j = k / B;
+      const int col = k - j * B;
+      Body::stage(src + (int64_t)(j0 + j) * C * B + col, B, sm + k,
+                  sm_stride);
+    }
+    __syncthreads();
+    if (act) {
+      for (int j = 0; j < cnt; ++j) {
+        if (kPaired) {
+          block2<Body>(sm + j * B, sm_stride, B, t0, t1, a0, a1);
+        } else {
+          block<Body>(sm + j * B, sm_stride, B, t0, a0);
+        }
+      }
+    }
+  }
+}
+
+// Blocks of B sources staged per barrier pair within kPreStageBytes.
+template <class Body>
+int pre_stage(int B, int G) {
+  const int stage = kPreStageBytes / ((int)sizeof(float) * Body::kRows * B);
+  return stage < 1 ? 1 : (stage > G ? G : stage);
+}
+
 template <class Body, bool kPaired>
 __global__ void exec_pre_runs(const float* __restrict__ tgt_geo,
                               const float* __restrict__ src_gathered,
@@ -178,31 +220,11 @@ __global__ void exec_pre_runs(const float* __restrict__ tgt_geo,
   float a0[Body::kOut], a1[Body::kOut];
 #pragma unroll
   for (int o = 0; o < Body::kOut; ++o) a0[o] = a1[o] = 0.f;
-  const int sm_stride = stage * B;
   const int p_end = run_off[run + 1];
   for (int p = run_off[run]; p < p_end; ++p) {
-    const float* src = src_gathered + (int64_t)steps[p] * G * C * B;
-    const int n = n_slots ? n_slots[p] : G;  // uniform across the CTA
-    for (int j0 = 0; j0 < n; j0 += stage) {
-      const int cnt = (n - j0) < stage ? (n - j0) : stage;
-      __syncthreads();  // the previous blocks' readers are done
-      for (int k = threadIdx.x; k < cnt * B; k += blockDim.x) {
-        const int j = k / B;
-        const int col = k - j * B;
-        Body::stage(src + (int64_t)(j0 + j) * C * B + col, B, sm + k,
-                    sm_stride);
-      }
-      __syncthreads();
-      if (act) {
-        for (int j = 0; j < cnt; ++j) {
-          if (kPaired) {
-            block2<Body>(sm + j * B, sm_stride, B, t0, t1, a0, a1);
-          } else {
-            block<Body>(sm + j * B, sm_stride, B, t0, a0);
-          }
-        }
-      }
-    }
+    sum_gathered<Body, kPaired>(
+        src_gathered + (int64_t)steps[p] * G * C * B,
+        n_slots ? n_slots[p] : G, B, C, stage, sm, act, t0, t1, a0, a1);
   }
   if (act) {
     float* o0 = out + row0 * od8 * B + i;
@@ -224,11 +246,8 @@ int launch_exec_pre(const float* tgt_geo, const float* src_gathered,
   if (n_runs <= 0) return (int)cudaSuccess;
   const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
   const dim3 grid(n_runs, (B + threads - 1) / threads);
-  // blocks staged per barrier pair: what fits kPreStageBytes, 1..G
-  const int block_bytes = (int)sizeof(float) * Body::kRows * B;
-  int stage = kPreStageBytes / block_bytes;
-  stage = stage < 1 ? 1 : (stage > G ? G : stage);
-  const size_t smem = (size_t)stage * block_bytes;
+  const int stage = pre_stage<Body>(B, G);
+  const size_t smem = sizeof(float) * stage * Body::kRows * B;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         exec_pre_runs<Body, kPaired>,
@@ -239,6 +258,290 @@ int launch_exec_pre(const float* tgt_geo, const float* src_gathered,
       tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots, B, C, G,
       od8, stage);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// K10 (pair_fetch "dma") and K11 ("dma_p"): the unpaired executor with
+// source blocks fetched by id through bulk asynchronous copies. Replace
+// onbody_tpu/ops/pallas_pairs.py:_exec_chunk with _body (K10) and with
+// _body_pair (K11).
+//
+// The TPU kernels start a step's G source DMAs together and double-buffer
+// them by step; K11 fetches two adjacent ids (a, a+1) with one 2-block
+// DMA. Here the CTA keeps K1's design (one CTA per run of a target row,
+// the sums in registers, one write per run, no atomics) and changes the
+// fetch: one thread walks the run's slots and starts one 1D bulk copy per
+// block (K11: per bundle of two adjacent blocks, which are contiguous in
+// src_fm) into a ring of shared-memory stages, each completing on its own
+// mbarrier (async_copy.cuh). While the CTA sums one stage, the copies of
+// the next n_stages - 1 are in flight. Id 0, the inert row, starts no
+// copy and takes no stage, so the k-th copy of a run always uses stage
+// k % n_stages with parity (k / n_stages) & 1, however the slots are
+// skipped; every copy started is waited on exactly once, because the
+// readers and the issuing thread walk the same slot sequence with the
+// same planner (copy_blocks).
+//
+// The copies carry the fm rows as stored: a body whose staged rows differ
+// (a core term, vort2d's sr^2) rewrites them in place before the sums
+// (Body::staged, the function K1's stage applies). The blocks are then
+// summed in slot order through K1's block(), so on the same groups K10
+// and K11 give K1's result bit for bit.
+//
+// Shared memory: K1 stages one block per barrier pair; the reference's
+// two banks of G blocks would take 160-224 KiB at B 256 / G 16. The ring
+// is sized in stages from kFetchRingBytes (2..kFetchMaxStages stages), so
+// two or more CTAs stay resident per SM. A stage holds one block's kRows
+// rows (K11: C + kRows rows, a bundle's first block whole and the second
+// one's used rows). Bulk copies need 16-byte aligned addresses and sizes:
+// the wrapper raises unless B is a multiple of 4 and src_fm is aligned.
+//
+// What bounds it: as K1, the FP32/MUFU operations of the pairs; the
+// copies take the loads off the SM's load pipe and the barrier pair per
+// block becomes a wait plus one release barrier (two with a restage).
+
+constexpr int kFetchMaxStages = 8;
+constexpr int kFetchRingBytes = 64 * 1024;
+
+// K11's bundle planner (reference pallas_pairs.py:_body_pair, its greedy
+// head/consumed scan :316-330), one slot at a time: the blocks fetched by
+// the copy that starts at slot j of a step's G ids, given that slot j is
+// not the second half of a bundle. 0 for the inert id 0 (no copy); 2 when
+// slot j + 1 holds the next id (one copy of both blocks); else 1. The last
+// slot never heads a bundle. Advancing j by max(1, copy_blocks()) is the
+// reference's scan: ids a, a+1, a+2 give the bundle (a, a+1), then a+2.
+__host__ __device__ inline int copy_blocks(const int* ids, int j, int G) {
+  const int a = ids[j];
+  if (a == 0) return 0;
+  return (j + 1 < G && ids[j + 1] == a + 1) ? 2 : 1;
+}
+
+// The copy of a run's slot sequence ids[0..n) that starts at slot q or
+// after it: moves q onto its first slot and returns its block count (0
+// when no copy is left). Steps are G slots each; K10 never bundles.
+template <bool kBundle>
+__device__ __forceinline__ int next_copy(const int* __restrict__ ids, int n,
+                                         int G, int& q) {
+  while (q < n && ids[q] == 0) ++q;
+  if (q >= n) return 0;
+  if (!kBundle) return 1;
+  const int j = q % G;
+  return copy_blocks(ids + (q - j), j, G);
+}
+
+template <class Body, bool kBundle>
+__host__ __device__ constexpr int fetch_stage_rows(int C) {
+  return kBundle ? C + Body::kRows : Body::kRows;
+}
+
+template <class Body, bool kBundle>
+__global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
+                                const float* __restrict__ src_fm,
+                                float* __restrict__ out,
+                                const int* __restrict__ run_tgt,
+                                const int* __restrict__ run_off,
+                                const int* __restrict__ pair_s, int B, int C,
+                                int G, int od8, int n_stages) {
+  extern __shared__ __align__(16) float ring[];  // n_stages stages
+  __shared__ uint64_t bar[kFetchMaxStages];
+  const int run = blockIdx.x;
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool act = i < B;
+  const int64_t row0 = run_tgt[run];
+  typename Body::Tgt t0{};
+  if (act) t0 = Body::load_tgt(tgt_geo + row0 * 8 * B + i, B);
+  float a0[Body::kOut];
+#pragma unroll
+  for (int o = 0; o < Body::kOut; ++o) a0[o] = 0.f;
+  const int* ids = pair_s + (int64_t)run_off[run] * G;
+  const int n = (run_off[run + 1] - run_off[run]) * G;
+  const int stage_floats = fetch_stage_rows<Body, kBundle>(C) * B;
+
+  // the issuing thread's cursor: next slot, copies started
+  int q_issue = 0, issued = 0;
+  auto issue = [&]() {
+    const int k = next_copy<kBundle>(ids, n, G, q_issue);
+    if (k == 0) return;
+    const int s = issued % n_stages;
+    const uint32_t bytes =
+        (uint32_t)sizeof(float) * (k == 2 ? C + Body::kRows : Body::kRows) *
+        B;
+    expect_copy(bar + s, bytes);
+    bulk_copy(ring + s * stage_floats, src_fm + (int64_t)ids[q_issue] * C * B,
+              bytes, bar + s);
+    q_issue += k;
+    ++issued;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_stages; ++s) mbar_init(bar + s, 1);
+    for (int s = 0; s < n_stages; ++s) issue();
+  }
+  __syncthreads();  // the barriers are initialised
+
+  int q = 0;
+  for (int f = 0;; ++f) {
+    const int k = next_copy<kBundle>(ids, n, G, q);  // uniform
+    if (k == 0) break;
+    float* blk = ring + (f % n_stages) * stage_floats;
+    mbar_wait(bar + f % n_stages, (f / n_stages) & 1);
+    if (!Body::kRawStage) {
+      for (int c = threadIdx.x; c < k * B; c += blockDim.x) {
+        float* col = blk + (c / B) * C * B + c % B;
+#pragma unroll
+        for (int r = 0; r < Body::kRows; ++r) {
+          col[r * B] = Body::staged(r, col[r * B]);
+        }
+      }
+      __syncthreads();
+    }
+    if (act) {
+      block<Body>(blk, B, B, t0, a0);
+      if (k == 2) block<Body>(blk + C * B, B, B, t0, a0);
+    }
+    __syncthreads();  // the stage is read: it may be refilled
+    if (threadIdx.x == 0) {
+      fence_before_copy();
+      issue();
+    }
+    q += k;
+  }
+  if (act) {
+    float* o0 = out + row0 * od8 * B + i;
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += a0[o];
+  }
+}
+
+// Threads, stages and dynamic shared memory of a K10/K11 launch.
+template <class Body, bool kBundle>
+void fetch_config(int B, int C, int* threads, int* n_stages, size_t* smem) {
+  *threads = B < kExecMaxThreads ? B : kExecMaxThreads;
+  const int stage_bytes =
+      (int)sizeof(float) * fetch_stage_rows<Body, kBundle>(C) * B;
+  int ns = kFetchRingBytes / stage_bytes;
+  *n_stages = ns < 2 ? 2 : (ns > kFetchMaxStages ? kFetchMaxStages : ns);
+  *smem = (size_t)*n_stages * stage_bytes;
+}
+
+template <class Body, bool kBundle>
+int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
+                      const int* run_tgt, const int* run_off,
+                      const int* pair_s, int n_runs, int B, int C, int G,
+                      int od8, void* stream) {
+  if (n_runs <= 0) return (int)cudaSuccess;
+  int threads, n_stages;
+  size_t smem;
+  fetch_config<Body, kBundle>(B, C, &threads, &n_stages, &smem);
+  const dim3 grid(n_runs, (B + threads - 1) / threads);
+  // always: the barriers' static shared memory counts against the 48 KiB
+  // a launch gets without the attribute
+  const cudaError_t err = cudaFuncSetAttribute(
+      exec_fetch_runs<Body, kBundle>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  exec_fetch_runs<Body, kBundle><<<grid, threads, smem,
+                                   (cudaStream_t)stream>>>(
+      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8,
+      n_stages);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// K12 (pair_fetch "static"): one CTA per step. Replaces
+// onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with _body_static.
+//
+// The TPU kernel gathers both the targets and the sources of a chunk so
+// that every index map is the grid index, evaluates kper = 8 steps per
+// grid step into per-step output rows, and the caller segment-adds the
+// rows into the accumulator. Here a CTA per step reads its target block
+// by row (a CTA can, so the targets are not gathered), sums the step's
+// gathered source blocks with K8's staging (sum_gathered), and writes its
+// own row (od8, B), the padding rows as zeros. No run table and no
+// aliasing: however long a target's run, its steps spread over the whole
+// card, which is what K1/K8's one CTA per run cannot do on long runs. The
+// wrapper adds the rows into the accumulator with one index_add_ per
+// chunk. Pad steps are not launched (steps[] lists the real ones).
+//
+// What bounds it: the pairs' operations, as K8; the bytes add each
+// step's row, written once and read back by the segment add.
+
+template <class Body>
+__global__ void exec_static_steps(const float* __restrict__ tgt_geo,
+                                  const float* __restrict__ src_gathered,
+                                  float* __restrict__ rows,
+                                  const int* __restrict__ step_tgt,
+                                  const int* __restrict__ steps,
+                                  const int* __restrict__ n_slots, int B,
+                                  int C, int G, int od8, int stage) {
+  extern __shared__ float sm[];  // Body::kRows rows of stage * B floats
+  const int p = blockIdx.x;
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool act = i < B;
+  typename Body::Tgt t0{};
+  if (act) t0 = Body::load_tgt(tgt_geo + (int64_t)step_tgt[p] * 8 * B + i, B);
+  float a0[Body::kOut];
+#pragma unroll
+  for (int o = 0; o < Body::kOut; ++o) a0[o] = 0.f;
+  sum_gathered<Body, false>(src_gathered + (int64_t)steps[p] * G * C * B,
+                            n_slots ? n_slots[p] : G, B, C, stage, sm, act,
+                            t0, t0, a0, a0);
+  if (act) {
+    float* o0 = rows + (int64_t)p * od8 * B + i;
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) o0[o * B] = a0[o];
+    for (int o = Body::kOut; o < od8; ++o) o0[o * B] = 0.f;
+  }
+}
+
+template <class Body>
+int launch_exec_static(const float* tgt_geo, const float* src_gathered,
+                       float* rows, const int* step_tgt, const int* steps,
+                       const int* n_slots, int n_steps, int B, int C, int G,
+                       int od8, void* stream) {
+  if (n_steps <= 0) return (int)cudaSuccess;
+  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
+  const dim3 grid(n_steps, (B + threads - 1) / threads);
+  const int stage = pre_stage<Body>(B, G);
+  const size_t smem = sizeof(float) * stage * Body::kRows * B;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        exec_static_steps<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  exec_static_steps<Body><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      tgt_geo, src_gathered, rows, step_tgt, steps, n_slots, B, C, G, od8,
+      stage);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per CTA, resident CTAs per SM and ring stages of
+// K10 (kind 0), K11 (1) or K12 (2) at (B, C, G), into info[0..2].
+template <class Body>
+int occupancy(int kind, int B, int C, int G, int* info) {
+  int threads, n_stages = 0;
+  size_t smem;
+  const void* fn;
+  if (kind == 2) {
+    threads = B < kExecMaxThreads ? B : kExecMaxThreads;
+    smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
+    fn = (const void*)exec_static_steps<Body>;
+  } else if (kind == 1) {
+    fetch_config<Body, true>(B, C, &threads, &n_stages, &smem);
+    fn = (const void*)exec_fetch_runs<Body, true>;
+  } else {
+    fetch_config<Body, false>(B, C, &threads, &n_stages, &smem);
+    fn = (const void*)exec_fetch_runs<Body, false>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                      smem);
+  info[0] = (int)smem;
+  info[1] = ctas;
+  info[2] = n_stages;
+  return (int)err;
 }
 
 }  // namespace onbody

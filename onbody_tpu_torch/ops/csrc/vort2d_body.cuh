@@ -37,14 +37,18 @@ struct Vort2d {
     return {g[0], g[stride], tr * tr};
   }
 
-  // fm rows x, y, sr, ss
+  // the staged value of fm row r (rows x, y, sr, ss)
+  static constexpr bool kRawStage = false;
+  __device__ static float staged(int r, float v) {
+    return r == 2 ? v * v : v;
+  }
+
   __device__ static void stage(const float* __restrict__ col,
                                int64_t stride, float* sm, int sm_stride) {
-    const float sr = __ldg(col + 2 * stride);
-    sm[0] = __ldg(col);
-    sm[sm_stride] = __ldg(col + stride);
-    sm[2 * sm_stride] = sr * sr;
-    sm[3 * sm_stride] = __ldg(col + 3 * stride);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      sm[r * sm_stride] = staged(r, __ldg(col + r * stride));
+    }
   }
 
   __device__ static Src load_src(const float* sm, int stride) {

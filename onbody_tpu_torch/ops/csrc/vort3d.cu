@@ -1,4 +1,4 @@
-// K1, K2, K4, K8 and K9 with the vort3d body K6, for the RM and exp cores.
+// K1, K2, K4, K8-K12 with the vort3d body K6, for the RM and exp cores.
 #include "entries.cuh"
 #include "vort3d_body.cuh"
 

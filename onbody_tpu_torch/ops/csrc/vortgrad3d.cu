@@ -1,4 +1,5 @@
-// K1, K2, K4, K8 and K9 with the vortgrad3d body K7, for the RM and exp cores.
+// K1, K2, K4, K8-K12 with the vortgrad3d body K7, for the RM and exp
+// cores.
 #include "entries.cuh"
 #include "vortgrad3d_body.cuh"
 

@@ -40,13 +40,17 @@ struct Vortgrad3d {
     return {g[0], g[stride], g[2 * stride]};
   }
 
-  // fm rows x, y, z, sr, wx, wy, wz
+  // the staged value of fm row r (rows x, y, z, sr, wx, wy, wz)
+  static constexpr bool kRawStage = false;
+  __device__ static float staged(int r, float v) {
+    return r == 3 ? Core::aux3(v) : v;
+  }
+
   __device__ static void stage(const float* __restrict__ col,
                                int64_t stride, float* sm, int sm_stride) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float v = __ldg(col + r * stride);
-      sm[r * sm_stride] = r == 3 ? Core::aux3(v) : v;
+      sm[r * sm_stride] = staged(r, __ldg(col + r * stride));
     }
   }
 

@@ -2,7 +2,7 @@
 
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
-`vortgrad3d.cu`) instantiates the executor (K1, K2, K8, K9) and direct
+`vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12) and direct
 (K4) templates (`pairs.cuh`, `direct.cuh`) on its body; nvcc compiles
 the units in parallel for sm_90a and links them into
 `build/onbody_tpu_torch/libonbody_kernels.so` under the repository root
@@ -27,7 +27,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # one translation unit per workload
 SOURCES = ("grav3d.cu", "vort2d.cu", "vort3d.cu", "vortgrad3d.cu")
-HEADERS = ("core.cuh", "body.cuh", "pairs.cuh", "direct.cuh", "entries.cuh",
+HEADERS = ("core.cuh", "body.cuh", "async_copy.cuh", "pairs.cuh",
+           "direct.cuh", "entries.cuh",
            "grav3d_body.cuh", "vort2d_body.cuh", "vort3d_body.cuh",
            "vortgrad3d_body.cuh")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -37,8 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # core_func values with a CUDA body (core.cuh); grav3d has no core
 CUDA_CORES = ("rm", "exp")
-KINDS = ("exec", "exec_t2", "direct", "exec_pre",
-         "exec_pre_t2")
+KINDS = ("exec", "exec_t2", "direct", "exec_pre", "exec_pre_t2", "exec_dma",
+         "exec_dmap", "exec_static")
+# kinds whose shared memory and residency `occupancy` reports, by the
+# code the C entry point takes
+OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2}
 INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
                                                      "vortgrad3d")
                                 for c in CUDA_CORES)
@@ -51,6 +55,10 @@ _ARGTYPES = {
     "direct": [_P] * 3 + [_I] * 2 + [_P],
     "exec_pre": [_P] * 7 + [_I] * 5 + [_P],
     "exec_pre_t2": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_dma": [_P] * 6 + [_I] * 5 + [_P],
+    "exec_dmap": [_P] * 6 + [_I] * 5 + [_P],
+    "exec_static": [_P] * 6 + [_I] * 5 + [_P],
+    "occupancy": [_I] * 4 + [_P],
 }
 
 
@@ -136,13 +144,24 @@ def lib() -> ctypes.CDLL:
     build()
     so = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
     for inst in INSTANCES:
-        for kind in KINDS:
+        for kind in KINDS + ("occupancy",):
             fn = getattr(so, entry(kind, inst))
             fn.argtypes = _ARGTYPES[kind]
             fn.restype = ctypes.c_int
     so.onbody_error_string.argtypes = [ctypes.c_int]
     so.onbody_error_string.restype = ctypes.c_char_p
     return so
+
+
+def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
+    """Dynamic shared memory per CTA (bytes), resident CTAs per SM and
+    ring stages of a K10/K11/K12 launch at (B, C, G), from the CUDA
+    occupancy calculator."""
+    info = (ctypes.c_int * 3)()
+    check(getattr(lib(), entry("occupancy", inst))(
+        OCCUPANCY_KINDS[kind], b, c, g, ctypes.addressof(info)),
+        entry("occupancy", inst))
+    return dict(smem=info[0], ctas_per_sm=info[1], stages=info[2])
 
 
 def check(rc: int, what: str) -> None:

@@ -1,6 +1,8 @@
-"""Grouped pair executors: kernels K1/K2 (sources fetched by id), K8/K9
-(sources pre-gathered contiguous per step) and their plain twins (port
-of onbody_tpu/ops/pallas_pairs.py), for every workload.
+"""Grouped pair executors: kernels K1/K2 (sources fetched by id with
+plain loads), K10/K11 (fetched by id with bulk asynchronous copies, K11
+bundling adjacent ids), K8/K9 and K12 (sources pre-gathered contiguous
+per step) and their plain twins (port of onbody_tpu/ops/pallas_pairs.py),
+for every workload.
 
 Work list: groups ordered by target row, group_t (P,) target rows (K2:
 target PARENT ids q, standing for rows 2q and 2q+1) and group_s (P, G)
@@ -13,16 +15,15 @@ The accumulator is updated IN PLACE (the reference donates it to an
 aliased output) and returned, so the interior pass and the paired leaf
 pass chain through one buffer in stream order.
 
-`exec_pairs_cuda` / `exec_pairs_cuda_t2` launch csrc/pairs.cuh's
-instantiation for the kernel and core on CUDA tensors and take the twins
-`exec_pairs_torch` / `exec_pairs_torch_t2` for CPU tensors; they never
-move work between devices. `exec_pairs_pre_cuda` / `exec_pairs_pre_cuda_t2`
-do the same for K8/K9 on a gathered (P, G*C, B) buffer (`_pregather`).
+Each `exec_pairs_*_cuda` wrapper launches csrc/pairs.cuh's instantiation
+for the kernel and core on CUDA tensors and takes its plain twin for CPU
+tensors; it never moves work between devices and never gives way to
+another kernel.
 
 `exec_pairs` / `exec_pairs_t2` are the front doors with the reference's
 `fetch` argument: 'pregather' chunks the list, gathers each chunk and
-runs K8/K9; 'dma', 'dma_i', 'dma_p' and 'static' run K1/K2 (the
-reference's schedules of the same sum; 'static' has no paired form).
+runs K8/K9; 'dma_i' runs K1/K2, 'dma' K10/K2, 'dma_p' K11/K2; 'static'
+chunks and gathers as 'pregather' and runs K12, and has no paired form.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from onbody_tpu_torch.ops.kernels import (FM_ROWS, Kernel, featurize,
 
 GROUP = 8
 # kernel launches by the wrappers, keyed (kind, instance) with kind one of
-# "exec", "exec_t2", "exec_pre", "exec_pre_t2" and the instance as
+# cuda_lib.KINDS' executors ("exec", "exec_t2", "exec_pre", "exec_pre_t2",
+# "exec_dma", "exec_dmap", "exec_static") and the instance as
 # cuda_lib.instance names it (reset by callers that count a run)
 LAUNCHES = collections.Counter()
 # elements per (steps, B, B) twin temporary: bounds its chunk of steps
@@ -175,6 +177,12 @@ def exec_pairs_pre_torch_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
     return out_fm
 
 
+# K12's twin: per-step rows of the gathered steps, each chunk of them
+# index_add_-ed into its target rows, which is what the pre-gathered
+# twin does (_twin_add)
+exec_pairs_static_torch = exec_pairs_pre_torch
+
+
 # --------------------------------------------------------------- kernels
 
 def _run_table(group_t):
@@ -263,12 +271,20 @@ def _check_targets(name: str, run_tgt, nn_keys: int):
 
 def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
             out_fm) -> bool:
-    """Run one K1/K2 launch; False when the list has no real step."""
+    """Run one launch of a kernel that fetches by id (K1 "exec", K2
+    "exec_t2", K10 "exec_dma", K11 "exec_dmap"); False when the list has
+    no real step."""
     paired = kind == "exec_t2"
     inst = cuda_lib.instance(kernel.name, core)
     name = cuda_lib.entry(kind, inst)
     _one_cuda_device(name, tgt_geo, src_fm, group_t, group_s, out_fm)
     _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired)
+    _, c, b = src_fm.shape
+    if kind in ("exec_dma", "exec_dmap") and (
+            b % 4 or src_fm.data_ptr() % 16):
+        raise ValueError(f"{name}: bulk copies need 16-byte aligned "
+                         f"blocks: B={b} must be a multiple of 4 and "
+                         "src_fm 16-byte aligned")
     run_tgt, run_off, pair_s = _runs(group_t, group_s)
     if run_tgt.numel() == 0:
         return False
@@ -277,7 +293,6 @@ def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
     if s_lo < 0 or s_hi >= src_fm.shape[0]:
         raise ValueError(f"{name}: row ids out of range (sources "
                          f"[{s_lo}, {s_hi}] of {src_fm.shape[0]})")
-    _, c, b = src_fm.shape
     rc = getattr(cuda_lib.lib(), name)(
         tgt_geo.data_ptr(), src_fm.data_ptr(), out_fm.data_ptr(),
         run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
@@ -290,9 +305,11 @@ def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
 
 def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
                 out_fm, group: int, n_slots) -> bool:
-    """Run one K8/K9 launch on a gathered chunk; False when the chunk
-    has no real step. n_slots (P,) or None: slots of each step to
-    evaluate (the rest hold the inert row, which adds exactly zero)."""
+    """Run one launch on a gathered chunk (K8 "exec_pre", K9
+    "exec_pre_t2", K12 "exec_static"); False when the chunk has no real
+    step. n_slots (P,) or None: slots of each step to evaluate (the rest
+    hold the inert row, which adds exactly zero). K12 writes one row per
+    real step, which one index_add_ then adds into out_fm."""
     paired = kind == "exec_pre_t2"
     inst = cuda_lib.instance(kernel.name, core)
     name = cuda_lib.entry(kind, inst)
@@ -313,15 +330,28 @@ def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
     slots = None
     if n_slots is not None:
         slots = n_slots[steps].to(torch.int32).contiguous()
-    steps = steps.to(torch.int32).contiguous()
-    rc = getattr(cuda_lib.lib(), name)(
-        tgt_geo.data_ptr(), src_gathered.data_ptr(), out_fm.data_ptr(),
-        run_tgt.data_ptr(), run_off.data_ptr(), steps.data_ptr(),
-        None if slots is None else slots.data_ptr(),
-        run_tgt.numel(), b, gc // group, group, out_fm.shape[1],
-        cuda_lib.stream_ptr(out_fm.device))
+    steps32 = steps.to(torch.int32).contiguous()
+    slot_ptr = None if slots is None else slots.data_ptr()
+    fn = getattr(cuda_lib.lib(), name)
+    stream = cuda_lib.stream_ptr(out_fm.device)
+    c = gc // group
+    if kind == "exec_static":
+        # one row per real step, keyed by the step's target row
+        rows_t = group_t[steps]
+        keys = rows_t.to(torch.int32).contiguous()
+        rows = out_fm.new_empty((steps.numel(),) + out_fm.shape[1:])
+        rc = fn(tgt_geo.data_ptr(), src_gathered.data_ptr(), rows.data_ptr(),
+                keys.data_ptr(), steps32.data_ptr(), slot_ptr, steps.numel(),
+                b, c, group, out_fm.shape[1], stream)
+    else:
+        rc = fn(tgt_geo.data_ptr(), src_gathered.data_ptr(),
+                out_fm.data_ptr(), run_tgt.data_ptr(), run_off.data_ptr(),
+                steps32.data_ptr(), slot_ptr, run_tgt.numel(), b, c, group,
+                out_fm.shape[1], stream)
     cuda_lib.check(rc, name)
     LAUNCHES[(kind, inst)] += 1
+    if kind == "exec_static":
+        out_fm.index_add_(0, rows_t, rows)
     return True
 
 
@@ -338,14 +368,71 @@ def exec_pairs_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     one CTA per run of a target row keeps the row's sums in registers
     and stages each source block in shared memory once for all B targets
     (csrc/pairs.cuh)."""
+    return _exec_by_id("exec", kernel, tgt_geo, src_fm, group_t, group_s,
+                       out_fm, final, core)
+
+
+def _exec_by_id(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
+                out_fm, final: bool, core: str):
+    """K1, K10 or K11 on CUDA tensors, their twin exec_pairs_torch on
+    CPU tensors."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t, group_s,
                                 out_fm, final, core)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
-    _launch("exec", kernel, core, tgt_geo, src_fm, group_t, group_s,
-            out_fm)
+    _launch(kind, kernel, core, tgt_geo, src_fm, group_t, group_s, out_fm)
     return _finish(kernel, out_fm, final)
+
+
+def exec_pairs_dma_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
+                        out_fm=None, final: bool = True, core: str = "rm"):
+    """K1's sum with the source blocks fetched by bulk asynchronous
+    copies: CUDA tensors launch K10, CPU tensors take exec_pairs_torch.
+    Adds into out_fm (zeros when None) and returns it, or with
+    final=True the point-major (NN_t, B, OD) view. B must be a multiple
+    of 4 (the copies need 16-byte alignment).
+
+    K10 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk with _body
+    (pair_fetch 'dma'). K1's design, one CTA per run of a target row;
+    one thread copies the run's blocks into a ring of shared-memory
+    stages ahead of the sums, each copy completing on its own mbarrier,
+    and the inert id 0 starts no copy (csrc/pairs.cuh). Bound by the
+    pairs' operations, as K1; on the same groups it gives K1's result
+    bit for bit."""
+    return _exec_by_id("exec_dma", kernel, tgt_geo, src_fm, group_t,
+                       group_s, out_fm, final, core)
+
+
+def exec_pairs_dmap_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
+                         out_fm=None, final: bool = True, core: str = "rm"):
+    """K10 with adjacent source ids (a, a+1) of a step fetched by one
+    copy of both blocks: CUDA tensors launch K11, CPU tensors take
+    exec_pairs_torch. Arguments and result as exec_pairs_dma_cuda.
+
+    K11 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk with
+    _body_pair (pair_fetch 'dma_p'), with its greedy bundling
+    (csrc/pairs.cuh copy_blocks; bundled_blocks counts it). On lists
+    compacted with list_compact='idsort' sibling blocks sit in adjacent
+    slots. K1's result bit for bit on the same groups."""
+    return _exec_by_id("exec_dmap", kernel, tgt_geo, src_fm, group_t,
+                       group_s, out_fm, final, core)
+
+
+def bundled_blocks(group_s) -> int:
+    """Source blocks K11 fetches two to a copy on the (P, G) list: the
+    reference's greedy scan per step (a slot heads a bundle when its id
+    is not 0, the next slot holds the next id and the slot was not taken
+    by the bundle before it). K11 starts (non-zero slots) - bundled / 2
+    copies."""
+    consumed = torch.zeros_like(group_s[:, 0], dtype=torch.bool)
+    bundled = group_s.new_zeros(())
+    for j in range(group_s.shape[1] - 1):
+        a = group_s[:, j]
+        head = (a != 0) & (group_s[:, j + 1] == a + 1) & ~consumed
+        bundled = bundled + 2 * head.sum()
+        consumed = head
+    return int(bundled)
 
 
 def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
@@ -414,6 +501,34 @@ def exec_pairs_pre_cuda_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
     return out_fm
 
 
+def exec_pairs_static_cuda(kernel: Kernel, tgt_geo, src_gathered, group_t,
+                           out_fm=None, final: bool = True,
+                           core: str = "rm", group: int = GROUP,
+                           n_slots=None):
+    """One output row per step on pre-gathered sources (P, G*C, B), then
+    one index_add_ of the rows into their target rows: CUDA tensors
+    launch K12, CPU tensors take exec_pairs_static_torch. Adds into
+    out_fm (zeros when None) and returns it, or with final=True the
+    point-major (NN_t, B, OD) view. The order of the sums across the
+    steps of a target is the atomics' (not fixed).
+
+    K12 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with
+    _body_static (pair_fetch 'static'): one CTA per step reads its
+    target block by row and sums the step's gathered blocks as K8 does,
+    so a long run of one target spreads over the card; the reference
+    segment-adds the rows outside its kernel too (csrc/pairs.cuh). Bound
+    by the pairs' operations; its bytes add the rows, written once and
+    read back by the add."""
+    if tgt_geo.device.type == "cpu":
+        return exec_pairs_static_torch(kernel, tgt_geo, src_gathered,
+                                       group_t, out_fm, final, core, group)
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    _launch_pre("exec_static", kernel, core, tgt_geo, src_gathered, group_t,
+                out_fm, group, n_slots)
+    return _finish(kernel, out_fm, final)
+
+
 # ------------------------------------------------------- pregather + doors
 
 def pregather_chunk(group: int, c: int, b: int) -> int:
@@ -460,27 +575,31 @@ def _check_fetch(fetch: str):
         raise ValueError(f"pair_fetch {fetch!r}: one of {PAIR_FETCHES}")
 
 
-def _exec_pregather(paired: bool, kernel, tgt_geo, src_fm, group_t, group_s,
+def _exec_pregather(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
                     out_fm, core: str, twin: bool):
-    """Chunked pregather execution into out_fm: per chunk of steps one
-    row gather into a buffer allocated once, then one K8/K9 launch (or
-    the twin). Chunks are separate launches in stream order on one
+    """Chunked execution on gathered sources into out_fm: per chunk of
+    steps one row gather into a buffer allocated once, then one launch of
+    `kind` (K8 "exec_pre", K9 "exec_pre_t2", K12 "exec_static") or its
+    twin. Chunks are separate launches in stream order on one
     accumulator, so a run cut by a chunk boundary resumes from its
-    partial sum (reference pallas_pairs.py:31-36)."""
+    partial sum (reference pallas_pairs.py:31-36); K12's rows are added
+    per chunk, never all at once."""
     p, g = group_s.shape
     b = tgt_geo.shape[2]
     chunk = pregather_chunk(g, src_fm.shape[1], b)
-    if twin:
-        run = exec_pairs_pre_torch_t2 if paired else exec_pairs_pre_torch
+    if kind == "exec_static":
+        run = exec_pairs_static_torch if twin else exec_pairs_static_cuda
+    elif kind == "exec_pre_t2":
+        run = exec_pairs_pre_torch_t2 if twin else exec_pairs_pre_cuda_t2
     else:
-        run = exec_pairs_pre_cuda_t2 if paired else exec_pairs_pre_cuda
+        run = exec_pairs_pre_torch if twin else exec_pairs_pre_cuda
     buf = src_fm.new_empty((min(p, chunk) * g,) + src_fm.shape[1:])
     for i in range(0, p, chunk):
         gt_c, gs_c = group_t[i:i + chunk], group_s[i:i + chunk]
         src_c = _pregather(kernel.name, src_fm, gs_c, b, pad8=False,
                            out=buf)
         kw = {} if twin else dict(n_slots=n_real_slots(gs_c))
-        if not paired:
+        if kind != "exec_pre_t2":
             kw["final"] = False
         run(kernel, tgt_geo, src_c, gt_c, out_fm, core=core, group=g, **kw)
 
@@ -490,18 +609,22 @@ def exec_pairs(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
                final: bool = True, twin: bool = False):
     """Unpaired grouped execution with the reference's fetch argument
     (pallas_pairs.py:exec_pairs_pallas). 'pregather' gathers each chunk
-    of steps contiguous and runs K8; 'dma', 'dma_i', 'dma_p' and
-    'static' run K1, which fetches by source id. CPU tensors, or
-    twin=True, take the plain twins through the same chunking. Adds into
-    out_fm (zeros when None); final=True returns (NN_t, B, OD)."""
+    of steps contiguous and runs K8; 'static' does the same and runs
+    K12; 'dma_i' runs K1, 'dma' K10 and 'dma_p' K11, which fetch by
+    source id. CPU tensors, or twin=True, take the plain twins through
+    the same chunking. Adds into out_fm (zeros when None); final=True
+    returns (NN_t, B, OD)."""
     _check_fetch(fetch)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
-    if fetch == "pregather":
-        _exec_pregather(False, kernel, tgt_geo, src_fm, group_t, group_s,
+    if fetch in ("pregather", "static"):
+        kind = "exec_pre" if fetch == "pregather" else "exec_static"
+        _exec_pregather(kind, kernel, tgt_geo, src_fm, group_t, group_s,
                         out_fm, core, twin)
         return _finish(kernel, out_fm, final)
-    run = exec_pairs_torch if twin else exec_pairs_cuda
+    run = exec_pairs_torch if twin else {
+        "dma_i": exec_pairs_cuda, "dma": exec_pairs_dma_cuda,
+        "dma_p": exec_pairs_dmap_cuda}[fetch]
     return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, final,
                core)
 
@@ -511,15 +634,16 @@ def exec_pairs_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
                   twin: bool = False):
     """Sibling-paired grouped execution on parent-keyed steps
     (pallas_pairs.py:exec_pairs_pallas_t2): 'pregather' runs K9, the
-    dma family K2; 'static' has no chained-accumulator form and is
-    refused. Adds into out_fm and returns it."""
+    dma family K2 (the reference runs _body_interleaved_t2 for all
+    three); 'static' has no chained-accumulator form and is refused.
+    Adds into out_fm and returns it."""
     _check_fetch(fetch)
     if fetch == "static":
         raise ValueError("sibling-paired lists need a dma-family or "
                          "pregather pair_fetch")
     if fetch == "pregather":
-        _exec_pregather(True, kernel, tgt_geo, src_fm, group_t, group_s,
-                        out_fm, core, twin)
+        _exec_pregather("exec_pre_t2", kernel, tgt_geo, src_fm, group_t,
+                        group_s, out_fm, core, twin)
         return out_fm
     run = exec_pairs_torch_t2 if twin else exec_pairs_cuda_t2
     return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, core)

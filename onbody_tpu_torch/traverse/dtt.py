@@ -90,11 +90,11 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
         if use_p2:
             pl, pl2 = lists.build_dtt_pairs_level2(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
-                n_live=n_live)
+                n_live=n_live, compact=cfg.list_compact)
         else:
             pl = lists.build_dtt_pairs_level(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
-                n_live=n_live)
+                n_live=n_live, compact=cfg.list_compact)
     out, info = pexec.exec_pairs(kernel, cfg, plan, pl, cfg.frontier_width,
                                  cfg.cap_groups_dtt, raw2=pl2, timer=timer)
     with phase(timer, "downward"):

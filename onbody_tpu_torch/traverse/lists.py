@@ -43,17 +43,28 @@ class PairGroups(NamedTuple):
     overflow: torch.Tensor
 
 
-def _compact_rows(vals: torch.Tensor,
-                  width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Move each row's non-zero entries to the front, in order, and
-    truncate/pad to `width` columns. Returns (rows, overflow count).
-    The reference's 'scatter' and 'sort' movers give identical rows;
-    this is the stable sort."""
+def _compact_rows(vals: torch.Tensor, width: int,
+                  mode: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Move each row's non-zero entries to the front and truncate/pad to
+    `width` columns. Returns (rows, overflow count).
+
+    mode 'scatter' and 'sort' keep the entries in order (the reference's
+    two movers give identical rows; this is the stable sort); 'idsort'
+    sorts them by ascending id, zeros last (reference lists.py:80-88),
+    so sibling blocks (2c, 2c+1) land in adjacent slots, the layout the
+    bundled fetch (pair_fetch 'dma_p') copies two at a time. Ids within a
+    row are distinct, so the order is unique."""
     valid = vals != 0
     counts = valid.sum(1)
     overflow = (counts - width).clamp(min=0).sum()
-    order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices
-    out = torch.gather(vals, 1, order)
+    if mode == "idsort":
+        big = torch.iinfo(vals.dtype).max
+        out = torch.sort(torch.where(valid, vals, big), dim=1).values
+        out = torch.where(out == big, 0, out)
+    else:
+        order = torch.sort((~valid).to(torch.uint8), dim=1,
+                           stable=True).indices
+        out = torch.gather(vals, 1, order)
     k = out.shape[1]
     if width > k:
         out = torch.cat([out, out.new_zeros((out.shape[0], width - k))], 1)
@@ -253,9 +264,11 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
 
 def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                      frontier_width: int, mac_geometry: str = "quant",
-                     n_live: int = 0, leaf_pair2: bool = False):
+                     n_live: int = 0, leaf_pair2: bool = False,
+                     compact: str = "scatter"):
     """Simultaneous-descent dual-tree traversal, one MAC round per
-    target level (reference _dtt_lists_level).
+    target level (reference _dtt_lists_level). `compact` is the row
+    order of every compaction (_compact_rows' mode).
 
     A target node's candidates are the children of its parent's
     non-separated list (a non-separated source leaf rides along
@@ -314,7 +327,7 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                     kids = torch.cat([torch.where(expand, 2 * cand, 0),
                                       torch.where(expand, 2 * cand + 1, 0)],
                                      dim=1)
-                    cand, ovc = _compact_rows(kids, W)
+                    cand, ovc = _compact_rows(kids, W, compact)
                     overflow = overflow + ovc
                     accept, expand, defer = classify(cand, tgeo, True)
                     out_ext, out_cnt, ovc = _append_rows(
@@ -324,7 +337,7 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                 out = out_ext[:, :W]
                 total_valid = total_valid + out_cnt.sum()
             else:
-                out, ovc = _compact_rows(out, W)
+                out, ovc = _compact_rows(out, W, compact)
                 overflow = overflow + ovc + expand.sum()
                 total_valid = total_valid + (out != 0).sum()
         all_tgt.append(tgt_ids[:, None].expand(rows, out.shape[1])
@@ -338,7 +351,7 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
         kids = torch.cat([torch.where(split, 2 * cand,
                                       torch.where(keep_leaf, cand, 0)),
                           torch.where(split, 2 * cand + 1, 0)], dim=1)
-        nxt, ovc = _compact_rows(kids, W)
+        nxt, ovc = _compact_rows(kids, W, compact)
         overflow = overflow + ovc
         if leaf_pair2 and l == levels_t - 1:
             ch_alive = ttree.alive[2 * nt:2 * nt + 2 * rows].view(rows, 2)
@@ -358,18 +371,21 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
 def build_dtt_pairs_level(stree: Tree, ttree: Tree, theta: float,
                           frontier_width: int = 128,
                           mac_geometry: str = "quant",
-                          n_live: int = 0) -> PairList:
-    """Simultaneous-descent DTT pair list; slot width frontier_width."""
+                          n_live: int = 0,
+                          compact: str = "scatter") -> PairList:
+    """Simultaneous-descent DTT pair list; slot width frontier_width;
+    `compact` orders each row (_compact_rows)."""
     tgt, src, nv, ov = _dtt_lists_level(stree, ttree, theta,
                                         frontier_width, mac_geometry,
-                                        n_live)
+                                        n_live, compact=compact)
     return PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
 
 
 def build_dtt_pairs_level2(stree: Tree, ttree: Tree, theta: float,
                            frontier_width: int = 128,
                            mac_geometry: str = "quant",
-                           n_live: int = 0) -> Tuple[PairList, PairList]:
+                           n_live: int = 0, compact: str = "scatter"
+                           ) -> Tuple[PairList, PairList]:
     """DTT lists with sibling-paired leaf emission. Returns (interior,
     leaf2): interior holds target levels 0..levels_t-1, leaf2 one entry
     per (target PARENT q, source leaf) standing for rows 2q and 2q+1.
@@ -378,7 +394,7 @@ def build_dtt_pairs_level2(stree: Tree, ttree: Tree, theta: float,
         raise ValueError("leaf_pair2 needs levels_s <= levels_t >= 1")
     tgt, src, p2t, p2s, nv, ov = _dtt_lists_level(
         stree, ttree, theta, frontier_width, mac_geometry, n_live,
-        leaf_pair2=True)
+        leaf_pair2=True, compact=compact)
     interior = PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
     leaf2 = PairList(tgt=p2t, src=p2s, n_valid=(p2s != 0).sum(),
                      overflow=torch.zeros_like(ov))

@@ -73,3 +73,19 @@ def scale_rel_max(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
 
+
+
+def jax_array(t):
+    """A port tensor as the reference's array (int64 ids as int32)."""
+    import jax.numpy as jnp
+    a = t.numpy()
+    return jnp.asarray(a.astype(np.int32) if a.dtype == np.int64 else a)
+
+
+def jax_tree(t):
+    """A port Tree as the reference's (the inverse of interop)."""
+    from onbody_tpu.tree import build as JB
+    return JB.Tree(nc=jax_array(t.nc), ns=jax_array(t.ns),
+                   nr=jax_array(t.nr), x=jax_array(t.x), s=jax_array(t.s),
+                   pr=jax_array(t.pr), alive=jax_array(t.alive),
+                   levels=t.levels, block_size=t.block_size)

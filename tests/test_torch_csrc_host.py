@@ -9,13 +9,22 @@ indexing, staging, run tables, masking of ragged edges, output layouts
 and body arithmetic (rsqrtf as 1/sqrtf) without a GPU; the card itself
 is tested in test_torch_cuda.py. Skips where there is no g++.
 
+K10 and K11 fetch their blocks with bulk asynchronous copies and
+mbarriers, inline PTX that g++ cannot build; all of it lives in
+csrc/async_copy.cuh, and this test swaps that one header for a
+synchronous host version (HOST_ASYNC: the copy is a memcpy that
+completes its barrier's phase at once, the wait checks that the phase
+it waits for has completed). So for K10/K11 the emulation checks the
+indexing, the slot walk, the ring's stage and phase bookkeeping and the
+order of the sums, not asynchrony.
+
 Limits: there is no concurrency inside a block, so nothing here tests
-the barriers, shared-memory races or any warp-level code (shuffles,
-cp.async, TMA, multi-thread reductions); and the rewrite finds the
-dynamic shared buffer and the `<<<...>>>` launches by regex, so it
-depends on how the sources spell them. Once a kernel gains warp-level
-code, this emulation no longer means anything for it: drop it then
-rather than grow the stubs.
+the barriers, shared-memory races, the copies' asynchrony or any
+warp-level code (shuffles, multi-thread reductions); and the rewrite
+finds the dynamic shared buffers and the `<<<...>>>` launches by regex,
+so it depends on how the sources spell them. Once a kernel gains
+warp-level code, this emulation no longer means anything for it: drop
+it then rather than grow the stubs.
 """
 
 import ctypes
@@ -44,6 +53,8 @@ HOST_STUB = r"""
 #include <stdint.h>
 #define __global__
 #define __device__
+#define __host__
+#define __align__(x)
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
@@ -63,6 +74,11 @@ inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "host"; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return 0;
+}
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*,
+                                                         int, size_t) {
+  *n = 1;
   return 0;
 }
 template <class... A> struct HostLaunch {
@@ -88,6 +104,36 @@ template <class... A> HostLaunch<A...> host_launch(void (*k)(A...), int g,
 }
 """
 
+# csrc/async_copy.cuh on the host: each barrier counts its completed
+# phases; a copy completes at once; a wait for a phase that has not
+# completed would hang on the card, so it aborts here
+HOST_ASYNC = r"""
+#pragma once
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+namespace onbody {
+inline void mbar_init(uint64_t* bar, uint32_t) { *bar = 0; }
+inline void expect_copy(uint64_t*, uint32_t) {}
+inline void fence_before_copy() {}
+inline void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                      uint64_t* bar) {
+  if (bytes % 16) abort();
+  memcpy(dst, src, bytes);
+  ++*bar;
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if ((*bar & 1u) == parity) abort();
+}
+}  // namespace onbody
+"""
+# K11's planner, exported for the test
+HOST_EXPORTS = r"""
+extern "C" int host_copy_blocks(const int* ids, int j, int g) {
+  return onbody::copy_blocks(ids, j, g);
+}
+"""
+
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
@@ -97,15 +143,18 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     for f in cuda_lib.SOURCES + cuda_lib.HEADERS:
         text = (cuda_lib.CSRC / f).read_text()
-        text = text.replace("extern __shared__ float sm[];",
-                            "float* sm = host_dyn_smem;")
+        if f == "async_copy.cuh":
+            text = HOST_ASYNC
+        text = re.sub(r"extern __shared__ (__align__\(\d+\) )?float "
+                      r"(\w+)\[\];", r"float* \2 = host_dyn_smem;", text)
         text = re.sub(r"(\w+<[^<>;]*>)<<<([^,]+), ([^,]+), [^>]*>>>\(",
                       r"host_launch(\1, \2, \3)(", text)
         (d / f).write_text(text)
     (d / "cuda_runtime.h").write_text("#pragma once\n")
     (d / "host_stub.h").write_text(HOST_STUB)
     (d / "all.cpp").write_text("".join(f'#include "{s}"\n'
-                                       for s in cuda_lib.SOURCES))
+                                       for s in cuda_lib.SOURCES)
+                               + HOST_EXPORTS)
     lib = d / "libhost.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-w",
                     f"-I{d}", "-include", "host_stub.h", "-o", str(lib),
@@ -300,7 +349,133 @@ def test_host_k9_matches_twin_and_keeps_root(host_lib, name, core):
 
 def test_host_library_exports_every_entry(host_lib):
     for name, core in INSTANCES:
-        for kind in cuda_lib.KINDS:
+        for kind in cuda_lib.KINDS + ("occupancy",):
             _entry(host_lib, kind, name, core)
     host_lib.onbody_error_string.restype = ctypes.c_char_p
     assert host_lib.onbody_error_string(0) == b"host"
+
+
+# the reference's adjacency cases (tests/test_pallas.py:287-290): a full
+# ascending run, mixed singles, pairs and pads, last-slot adjacency, the
+# greedy triple
+ADJACENCY = [[2, 3, 4, 5, 6, 7, 8, 9], [3, 4, 7, 9, 10, 13, 0, 0],
+             [5, 9, 11, 2, 6, 8, 14, 15], [4, 5, 6, 1, 12, 2, 0, 0]]
+
+
+def _adjacent_groups(gt_list):
+    gt = torch.tensor(gt_list)
+    gs = torch.tensor([ADJACENCY[i % 4] for i in range(len(gt_list))])
+    gs[gt == 0] = 0
+    return gt, gs
+
+
+def plan_step(ids):
+    """The reference's plan_step (pallas_pairs.py:316-330) in Python:
+    (heads, consumed) per slot."""
+    heads, cons, consumed = [], [], False
+    for j in range(len(ids)):
+        adj = (j < len(ids) - 1 and ids[j] != 0
+               and ids[j + 1] == ids[j] + 1)
+        heads.append(adj and not consumed)
+        cons.append(consumed)
+        consumed = heads[-1]
+    return heads, cons
+
+
+def _reference_copies(ids):
+    """(first slot, blocks) of each copy the reference starts, but for
+    the inert id 0, which the port does not copy."""
+    heads, cons = plan_step(ids)
+    return [(j, 2 if heads[j] else 1) for j in range(len(ids))
+            if heads[j] or (not cons[j] and ids[j] != 0)]
+
+
+def test_host_bundle_planner_matches_reference_scan(host_lib):
+    """copy_blocks walked slot by slot gives the reference's bundles, on
+    the adjacency cases and on random rows (sorted or not, with zeros);
+    bundled_blocks counts the same bundles on the whole list."""
+    g = torch.Generator().manual_seed(12)
+    rows = [list(r) for r in ADJACENCY]
+    for _ in range(200):
+        n = int(torch.randint(0, 9, (), generator=g))
+        ids = torch.randint(1, 20, (n,), generator=g)
+        if torch.rand((), generator=g) < 0.5:
+            ids = ids.sort().values
+        rows.append(ids.tolist() + [0] * (8 - n))
+    fn = host_lib.host_copy_blocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    bundled = 0
+    for ids in rows:
+        arr = (ctypes.c_int * 8)(*ids)
+        got, j = [], 0
+        while j < 8:
+            k = fn(ctypes.addressof(arr), j, 8)
+            if k:
+                got.append((j, k))
+            j += max(1, k)
+        assert got == _reference_copies(ids), ids
+        bundled += 2 * sum(k == 2 for _, k in got)
+    assert cuda_pairs.bundled_blocks(torch.tensor(rows)) == bundled
+    assert _reference_copies(ADJACENCY[3]) == [(0, 2), (2, 1), (3, 1),
+                                               (4, 1), (5, 1)]
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k10_k11_equal_k1(host_lib, name, core):
+    """K10 and K11 on lists with pads between and after the runs and the
+    adjacency cases in every step: K1's result exactly (the same blocks
+    summed in the same order), rows without a run untouched."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(kernel, seed=13)
+    gt, gs = _adjacent_groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
+    k1 = torch.zeros((16, cuda_pairs.od8(kernel), 32))
+    assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, src_fm, gt,
+                     gs, k1) == 0
+    twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                       final=False, core=core)
+    rms, mx = _errors(k1, twin)
+    assert rms <= REL_RMS and mx <= MAX_REL
+    for kind in ("exec_dma", "exec_dmap"):
+        out = torch.zeros_like(k1)
+        assert _run_exec(host_lib, kind, kernel, core, tgt_geo, src_fm, gt,
+                         gs, out) == 0
+        assert torch.equal(out, k1), kind
+
+
+@pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k12_matches_twin(host_lib, name, core, pad8):
+    """K12's per-step rows on a gathered chunk (lean rows and rows padded
+    to 8), added into their targets with index_add_: its twin's result
+    within the kernel limits and K1's; the padding rows are zeros."""
+    kernel = get_kernel(name)
+    b, group = 32, 8
+    src_fm, tgt_geo = _blocks(kernel, seed=14)
+    if not pad8:
+        src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0], seed=15)
+    gathered = cuda_pairs._pregather(name, src_fm, gs, b, pad8=False)
+    steps = torch.nonzero(gt).squeeze(1)
+    keys = gt[steps].int().contiguous()
+    slots = cuda_pairs.n_real_slots(gs)[steps].int().contiguous()
+    od8 = cuda_pairs.od8(kernel)
+    rows = torch.full((steps.numel(), od8, b), float("nan"))
+    steps32 = steps.int().contiguous()
+    assert _entry(host_lib, "exec_static", name, core)(
+        tgt_geo.data_ptr(), gathered.data_ptr(), rows.data_ptr(),
+        keys.data_ptr(), steps32.data_ptr(), slots.data_ptr(),
+        steps.numel(), b, src_fm.shape[1], group, od8, None) == 0
+    assert not rows[:, kernel.od:].any()
+    out = torch.zeros((16, od8, b)).index_add_(0, gt[steps], rows)
+    twin = cuda_pairs.exec_pairs_static_torch(kernel, tgt_geo, gathered, gt,
+                                              final=False, core=core,
+                                              group=group)
+    k1 = torch.zeros_like(out)
+    fm8, _ = _blocks(kernel, seed=14)
+    assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, fm8, gt, gs,
+                     k1) == 0
+    for ref in (twin, k1):
+        rms, mx = _errors(out, ref)
+        assert rms <= REL_RMS and mx <= MAX_REL
+    assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (K1, K2 pair executors; K8, K9
-the same on pre-gathered sources; K4 direct) against their plain twins
-and the fp64 oracle, for every (workload, core) instantiation, and the
-slice on the card against the slice on the CPU for every workload. Every
+the same on pre-gathered sources; K10, K11 fetching by bulk copies; K12
+one row per step; K4 direct) against their plain twins and the fp64
+oracle, for every (workload, core) instantiation, and the slice on the
+card against the slice on the CPU for every workload and fetch. Every
 test needs a CUDA device and skips without one.
 This file imports no jax, so on the GPU machine it runs without the
 reference package's conftest:
@@ -284,5 +285,118 @@ def test_slice_on_card_matches_cpu(dev, name):
                                        _to(targs, dev)))
     torch.cuda.synchronize()
     assert all(cuda_pairs.LAUNCHES[k] > b for k, b in zip(keys, before))
+    assert int(info.overflow) == int(cpu_info.overflow) == 0
+    assert rel_rms(out.cpu(), cpu_out) <= 1e-5
+
+
+# the reference's adjacency cases (tests/test_pallas.py:287-290)
+ADJACENCY = [[2, 3, 4, 5, 6, 7, 8, 9], [3, 4, 7, 9, 10, 13, 0, 0],
+             [5, 9, 11, 2, 6, 8, 14, 15], [4, 5, 6, 1, 12, 2, 0, 0]]
+
+
+def _adjacent_groups(dev, gt_list):
+    gt = torch.tensor(gt_list)
+    gs = torch.tensor([ADJACENCY[i % 4] for i in range(len(gt_list))])
+    gs[gt == 0] = 0
+    return gt.to(dev), gs.to(dev)
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k10_k11_equal_k1_and_match_twin(dev, name, core):
+    """K10 and K11 on runs of 1-3 steps with pads between and after them
+    and the adjacency cases in every step: K1's result bit for bit, its
+    twin's within the kernel limit, one launch each."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    gt, gs = _adjacent_groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
+    inst = cuda_lib.instance(name, core)
+    k1 = cuda_pairs.exec_pairs_cuda(kernel, tgt_geo, src_fm, gt, gs,
+                                    final=False, core=core)
+    twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                       final=False, core=core)
+    for kind, fn in (("exec_dma", cuda_pairs.exec_pairs_dma_cuda),
+                     ("exec_dmap", cuda_pairs.exec_pairs_dmap_cuda)):
+        before = cuda_pairs.LAUNCHES[(kind, inst)]
+        out = fn(kernel, tgt_geo, src_fm, gt, gs, final=False, core=core)
+        torch.cuda.synchronize()
+        assert cuda_pairs.LAUNCHES[(kind, inst)] == before + 1
+        assert torch.equal(out, k1), kind
+        assert scale_rel_max(out[1:].cpu(), twin[1:].cpu()) < 1e-4
+    occ = {k: cuda_lib.occupancy(k, inst, B, src_fm.shape[1], 8)
+           for k in cuda_lib.OCCUPANCY_KINDS}
+    assert all(o["ctas_per_sm"] >= 1 and o["smem"] > 0
+               for o in occ.values()), occ
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k12_matches_twin_and_k1(dev, name, core):
+    """K12 through the front door (fetch='static': the gather, one row
+    per step, index_add_) with lean rows: its twin's result and K1's on
+    the same groups within 1.1e-6 rel-RMS (the atomics order the sums
+    across a target's steps)."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups(dev, [1, 1, 0, 2, 2, 2, 0, 5, 7, 9, 9, 9, 0])
+    inst = cuda_lib.instance(name, core)
+    before = cuda_pairs.LAUNCHES[("exec_static", inst)]
+    got = cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs, core=core,
+                                fetch="static")
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[("exec_static", inst)] == before + 1
+    twin = cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs, core=core,
+                                 fetch="static", twin=True)
+    k1 = cuda_pairs.exec_pairs_cuda(kernel, tgt_geo, src_fm, gt, gs,
+                                    core=core)
+    for ref in (twin, k1):
+        assert rel_rms(got[1:].cpu(), ref[1:].cpu()) <= 1.1e-6
+    assert not got[torch.tensor([0, 3, 4, 6, 8], device=dev)].any()
+
+
+def test_fetch_kernels_refuse_unaligned_blocks(dev):
+    """Bulk copies need 16-byte aligned blocks: B = 30 raises, and
+    nothing falls back to another kernel."""
+    g = torch.Generator().manual_seed(3)
+    pos = torch.rand((4, 30, 3), generator=g)
+    rad = torch.full((4, 30), 0.05)
+    s = torch.rand((4, 30, 1), generator=g)
+    src_fm = cuda_pairs.build_fm_blocks(KER, pos, rad, s).contiguous()
+    tgt_geo = cuda_pairs.build_tgt_geo(pos, rad).contiguous()
+    gt = torch.tensor([1, 2], device=dev)
+    gs = torch.tensor([[1, 2], [3, 0]], device=dev)
+    before = dict(cuda_pairs.LAUNCHES)
+    for fetch in ("dma", "dma_p"):
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_pairs.exec_pairs(KER, tgt_geo.to(dev), src_fm.to(dev), gt,
+                                  gs, fetch=fetch)
+    assert dict(cuda_pairs.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("fetch", ["dma", "dma_p", "static"])
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_fetch_slice_on_card_matches_cpu(dev, name, fetch):
+    """prepare + solve_dtt under S-dma (K10 + K2), S-dma_p (K11 + K2 on
+    idsort lists) and S-static (K12) on the card vs the twins on the
+    CPU, N = 3000; K1 is not launched."""
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 60, 3000)
+    srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
+    cfg = SolverConfig(**SLICE_KW).replace(pair_fetch=fetch)
+    if fetch == "dma_p":
+        cfg = cfg.replace(list_compact="idsort")
+    cpu_out, cpu_info = dtt.solve_dtt(
+        kernel, cfg, treecode.prepare(kernel, cfg, srcs, targs))
+    inst = cuda_lib.instance(name, cfg.core_func)
+    kind = {"dma": "exec_dma", "dma_p": "exec_dmap",
+            "static": "exec_static"}[fetch]
+    before = dict(cuda_pairs.LAUNCHES)
+    gcfg = cfg.replace(pair_backend="cuda")
+    out, info = dtt.solve_dtt(
+        kernel, gcfg, treecode.prepare(kernel, gcfg, _to(srcs, dev),
+                                       _to(targs, dev)))
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[(kind, inst)] > before.get((kind, inst), 0)
+    assert cuda_pairs.LAUNCHES[("exec", inst)] == before.get(("exec", inst),
+                                                             0)
     assert int(info.overflow) == int(cpu_info.overflow) == 0
     assert rel_rms(out.cpu(), cpu_out) <= 1e-5

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_parts, make_inputs
+from _torch_parity import jax_parts, jax_tree, make_inputs, torch_parts
 from onbody_tpu.traverse import lists as jl
 from onbody_tpu.tree import build as jbuild
 from onbody_tpu_torch import interop
@@ -126,3 +126,71 @@ def test_group_pairs_chunking():
            zip(pg.tgt, pg.src) if s.any()]
     assert got == [(1, [7, 8, 9]), (3, list(range(10, 18))),
                    (3, [18, 19])]
+
+
+@pytest.mark.parametrize("mode", ["scatter", "sort", "idsort"])
+@pytest.mark.parametrize("width", [3, 8, 12])
+def test_compact_rows_modes_identical(mode, width):
+    """Every list_compact mode against the reference's, on rows of
+    distinct ids (as the builders' rows are)."""
+    rng = np.random.default_rng(53)
+    vals = np.stack([rng.permutation(np.arange(1, 100))[:10]
+                     for _ in range(40)])
+    vals = np.where(rng.random((40, 10)) < 0.5, 0, vals).astype(np.int32)
+    ref, ov = jl._compact_rows(jnp.asarray(vals), width, mode)
+    got, ovg = tl._compact_rows(torch.from_numpy(vals).long(), width, mode)
+    _same(got, ref)
+    assert int(ovg) == int(ov)
+    if mode == "idsort":
+        g = got.numpy()
+        for row in g:
+            nz = row[row != 0]
+            assert (np.diff(nz) > 0).all() and not row[len(nz):].any()
+
+
+def _check_idsort(st, tt, n_live, theta):
+    """Both DTT builders with compact='idsort' on the reference's trees:
+    the port's lists and groups equal the reference's, and the rows
+    really are in id order, unlike the scatter builder's."""
+    pst, ptt = interop.tree_from_numpy(st), interop.tree_from_numpy(tt)
+    pairs = [(jl.build_dtt_pairs_level(st, tt, theta, W, "quant",
+                                       compact="idsort", n_live=n_live),
+              tl.build_dtt_pairs_level(pst, ptt, theta, W, n_live=n_live,
+                                       compact="idsort"))]
+    if st.levels <= tt.levels:
+        pairs += zip(jl.build_dtt_pairs_level2(st, tt, theta, W, "quant",
+                                               compact="idsort",
+                                               n_live=n_live),
+                     tl.build_dtt_pairs_level2(pst, ptt, theta, W,
+                                               n_live=n_live,
+                                               compact="idsort"))
+    for ref, got in pairs:
+        _same_list(got, ref)
+        _same_list(tl.group_pairs(got, 4096, 8, W),
+                   jl.group_pairs(ref, 4096, 8, W, "sort"))
+    plain = tl.build_dtt_pairs_level(pst, ptt, theta, W, n_live=n_live)
+    got = pairs[0][1]
+    assert not torch.equal(got.src, plain.src)
+    assert torch.equal(got.src.view(-1, W).sort(1).values,
+                       plain.src.view(-1, W).sort(1).values)
+
+
+def test_dtt_lists_idsort_identical(trees):
+    """list_compact='idsort' (3D trees: equal, ragged, deep source):
+    both builders' rows, lists and groups equal the reference's."""
+    st, tt, n_live = trees
+    _check_idsort(st, tt, n_live, 1.2)
+
+
+def test_dtt_lists_idsort_identical_2d():
+    """The same in two dimensions (vort2d's trees and theta 1.4), on the
+    port's trees carried to the reference (tests/test_torch_vortex.py
+    holds the 2D trees equal), which spares the reference's 2D tree
+    build its compilation."""
+    from onbody_tpu_torch.tree import build as tbuild
+    sx, sr, ss, _, _ = make_inputs(54, 1500, pd=2)
+    _, _, _, tx, tr = make_inputs(55, 16, 2048, pd=2)
+    st = tbuild.build_tree(torch_parts(sx, sr, ss), 32, mode="span")[0]
+    tt = tbuild.build_tree(torch_parts(tx, tr), 32, mode="span",
+                           need_r=False)[0]
+    _check_idsort(jax_tree(st), jax_tree(tt), 2048, 1.4)

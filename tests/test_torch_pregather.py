@@ -268,10 +268,12 @@ def test_n_real_slots():
 
 @pytest.fixture
 def counted(monkeypatch):
-    """Counts calls of the four executors' wrappers."""
+    """Counts calls of the executors' wrappers."""
     calls = {}
     for fn in ("exec_pairs_cuda", "exec_pairs_cuda_t2",
-               "exec_pairs_pre_cuda", "exec_pairs_pre_cuda_t2"):
+               "exec_pairs_pre_cuda", "exec_pairs_pre_cuda_t2",
+               "exec_pairs_dma_cuda", "exec_pairs_dmap_cuda",
+               "exec_pairs_static_cuda"):
         real = getattr(tpp, fn)
 
         def wrapped(*a, _fn=fn, _real=real, **kw):
@@ -296,13 +298,14 @@ def _raw_lists(w=16):
 
 @pytest.mark.parametrize("fetch,want", [
     ("pregather", ["exec_pairs_pre_cuda", "exec_pairs_pre_cuda_t2"]),
-    ("dma", ["exec_pairs_cuda", "exec_pairs_cuda_t2"]),
+    ("dma", ["exec_pairs_cuda_t2", "exec_pairs_dma_cuda"]),
     ("dma_i", ["exec_pairs_cuda", "exec_pairs_cuda_t2"]),
-    ("dma_p", ["exec_pairs_cuda", "exec_pairs_cuda_t2"])])
+    ("dma_p", ["exec_pairs_cuda_t2", "exec_pairs_dmap_cuda"])])
 def test_pair_fetch_routes_to_its_executors(fetch, want, counted):
     """cfg.pair_fetch decides the executor in traverse/exec.py:
-    'pregather' the K8/K9 wrappers, the dma family the K1/K2 wrappers;
-    all of them give the same sums."""
+    'pregather' the K8/K9 wrappers, 'dma_i' K1's, 'dma' K10's and
+    'dma_p' K11's, the dma family's paired list K2's; all of them give
+    the same sums."""
     src_fm, tgt_geo = _blocks("grav3d", 14, True)
     plan = type("P", (), dict(tgt_geo=torch.from_numpy(tgt_geo),
                               src_fm=torch.from_numpy(src_fm)))
@@ -320,13 +323,19 @@ def test_pair_fetch_routes_to_its_executors(fetch, want, counted):
 
 
 def test_static_fetch_runs_k1_and_refuses_paired_lists(counted):
+    """pair_fetch='static' runs K12's wrapper (it ran K1's before K12
+    was ported) with K1's sums, and refuses a paired list."""
     src_fm, tgt_geo = _blocks("grav3d", 15, True)
     plan = type("P", (), dict(tgt_geo=torch.from_numpy(tgt_geo),
                               src_fm=torch.from_numpy(src_fm)))
     raw, raw2 = _raw_lists()
     cfg = SolverConfig(pair_group=8, pair_fetch="static")
-    texec.exec_pairs(TK.KERNELS["grav3d"], cfg, plan, raw, 16, 4)
-    assert list(counted) == ["exec_pairs_cuda"]
+    out, _ = texec.exec_pairs(TK.KERNELS["grav3d"], cfg, plan, raw, 16, 4)
+    assert list(counted) == ["exec_pairs_static_cuda"]
+    ref, _ = texec.exec_pairs(TK.KERNELS["grav3d"],
+                              cfg.replace(pair_fetch="dma_i"), plan, raw,
+                              16, 4)
+    assert rel_rms(out.numpy()[2:], ref.numpy()[2:]) <= TOL
     with pytest.raises(ValueError, match="sibling-paired"):
         texec.exec_pairs(TK.KERNELS["grav3d"], cfg, plan, raw, 16, 4,
                          raw2=raw2)
