@@ -24,6 +24,7 @@ from onbody_tpu_torch.ops.kernels import get_kernel
 from onbody_tpu_torch.parts import Parts, from_arrays
 from onbody_tpu_torch.traverse import direct as direct_mod
 from onbody_tpu_torch.traverse import treecode
+from onbody_tpu_torch.utils.device import resolve
 
 _CFG_2D = SolverConfig(block_size=128, order=4, theta_boxwise=1.3)
 _CFG_3D = SolverConfig(block_size=128, order=4, theta_boxwise=1.5)
@@ -32,12 +33,7 @@ _RETRIES = 3
 
 
 def _device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("onbody_tpu_torch.api: no CUDA device; pass "
-                           "device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return resolve(device, "onbody_tpu_torch.api")
 
 
 def _column(a, device) -> torch.Tensor:

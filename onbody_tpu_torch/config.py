@@ -121,8 +121,6 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
             and cfg.core_func not in kernel.cores:
         raise ValueError(f"core_func {cfg.core_func!r}: {kernel.name} "
                          f"takes one of {kernel.cores}")
-    if cfg.order < 0:
-        no("order < 0 (pair-merge equivalents)", 11)
     if cfg.tree_mode not in ("median", "span"):
         no(f"tree_mode={cfg.tree_mode!r}", 17)
     if cfg.tree_span_bot is not None:

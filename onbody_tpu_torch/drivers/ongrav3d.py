@@ -1,0 +1,19 @@
+"""CLI driver mirroring the reference's ongrav3d executable (ongrav3d.cpp).
+
+Usage: python -m onbody_tpu_torch.drivers.ongrav3d -n=100000 -t=1.0 -o=4 -b=128
+"""
+
+import sys
+
+from onbody_tpu_torch.drivers.common import run_driver
+
+DEFAULTS = None
+
+
+def main(argv=None, device=None):
+    run_driver("grav3d", "ongrav3d", sys.argv[1:] if argv is None else argv,
+               defaults=DEFAULTS, device=device)
+
+
+if __name__ == "__main__":
+    main()

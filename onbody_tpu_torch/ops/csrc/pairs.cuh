@@ -515,23 +515,9 @@ int launch_exec_static(const float* tgt_geo, const float* src_gathered,
 }
 
 // Dynamic shared memory per CTA, resident CTAs per SM and ring stages of
-// K10 (kind 0), K11 (1) or K12 (2) at (B, C, G), into info[0..2].
-template <class Body>
-int occupancy(int kind, int B, int C, int G, int* info) {
-  int threads, n_stages = 0;
-  size_t smem;
-  const void* fn;
-  if (kind == 2) {
-    threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-    smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
-    fn = (const void*)exec_static_steps<Body>;
-  } else if (kind == 1) {
-    fetch_config<Body, true>(B, C, &threads, &n_stages, &smem);
-    fn = (const void*)exec_fetch_runs<Body, true>;
-  } else {
-    fetch_config<Body, false>(B, C, &threads, &n_stages, &smem);
-    fn = (const void*)exec_fetch_runs<Body, false>;
-  }
+// one launch configuration, into info[0..2].
+inline int occupancy_of(const void* fn, int threads, size_t smem,
+                        int n_stages, int* info) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -542,6 +528,27 @@ int occupancy(int kind, int B, int C, int G, int* info) {
   info[1] = ctas;
   info[2] = n_stages;
   return (int)err;
+}
+
+// occupancy_of a K10 (kBundle false) or K11 launch at (B, C).
+template <class Body, bool kBundle>
+int fetch_occupancy(int B, int C, int* info) {
+  int threads, n_stages;
+  size_t smem;
+  fetch_config<Body, kBundle>(B, C, &threads, &n_stages, &smem);
+  return occupancy_of((const void*)exec_fetch_runs<Body, kBundle>, threads,
+                      smem, n_stages, info);
+}
+
+// occupancy_of K10 (kind 0), K11 (1) or K12 (2) at (B, C, G).
+template <class Body>
+int occupancy(int kind, int B, int C, int G, int* info) {
+  if (kind == 0) return fetch_occupancy<Body, false>(B, C, info);
+  if (kind == 1) return fetch_occupancy<Body, true>(B, C, info);
+  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
+  const size_t smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
+  return occupancy_of((const void*)exec_static_steps<Body>, threads, smem, 0,
+                      info);
 }
 
 }  // namespace onbody

@@ -3,7 +3,9 @@
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
 `vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12) and direct
-(K4) templates (`pairs.cuh`, `direct.cuh`) on its body; nvcc compiles
+(K4) templates (`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
+also K13, K10's template on the four ablated grav3d bodies
+(`grav3d_ablate_body.cuh`); nvcc compiles
 the units in parallel for sm_90a and links them into
 `build/onbody_tpu_torch/libonbody_kernels.so` under the repository root
 at first use, rebuilt when a hash of the sources and flags changes.
@@ -29,8 +31,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("grav3d.cu", "vort2d.cu", "vort3d.cu", "vortgrad3d.cu")
 HEADERS = ("core.cuh", "body.cuh", "async_copy.cuh", "pairs.cuh",
            "direct.cuh", "entries.cuh",
-           "grav3d_body.cuh", "vort2d_body.cuh", "vort3d_body.cuh",
-           "vortgrad3d_body.cuh")
+           "grav3d_body.cuh", "grav3d_ablate_body.cuh", "vort2d_body.cuh",
+           "vort3d_body.cuh", "vortgrad3d_body.cuh")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "onbody_tpu_torch")
 LIB_NAME = "libonbody_kernels.so"
@@ -43,6 +45,9 @@ KINDS = ("exec", "exec_t2", "direct", "exec_pre", "exec_pre_t2", "exec_dma",
 # kinds whose shared memory and residency `occupancy` reports, by the
 # code the C entry point takes
 OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2}
+# K13's modes: entry points onbody_exec_ablate_<mode> and
+# onbody_occupancy_ablate_<mode>, grav3d only
+ABLATE_MODES = ("dma", "d2", "norsqrt", "full")
 INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
                                                      "vortgrad3d")
                                 for c in CUDA_CORES)
@@ -148,6 +153,13 @@ def lib() -> ctypes.CDLL:
             fn = getattr(so, entry(kind, inst))
             fn.argtypes = _ARGTYPES[kind]
             fn.restype = ctypes.c_int
+    for mode in ABLATE_MODES:
+        fn = getattr(so, f"onbody_exec_ablate_{mode}")
+        fn.argtypes = _ARGTYPES["exec_dma"]
+        fn.restype = ctypes.c_int
+        fn = getattr(so, f"onbody_occupancy_ablate_{mode}")
+        fn.argtypes = _ARGTYPES["occupancy"][1:]
+        fn.restype = ctypes.c_int
     so.onbody_error_string.argtypes = [ctypes.c_int]
     so.onbody_error_string.restype = ctypes.c_char_p
     return so
@@ -156,11 +168,16 @@ def lib() -> ctypes.CDLL:
 def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
     """Dynamic shared memory per CTA (bytes), resident CTAs per SM and
     ring stages of a K10/K11/K12 launch at (B, C, G), from the CUDA
-    occupancy calculator."""
+    occupancy calculator. kind "ablate_<mode>" (inst "grav3d") reports
+    K13's launch of that mode."""
     info = (ctypes.c_int * 3)()
-    check(getattr(lib(), entry("occupancy", inst))(
-        OCCUPANCY_KINDS[kind], b, c, g, ctypes.addressof(info)),
-        entry("occupancy", inst))
+    if kind.startswith("ablate_"):
+        name = f"onbody_occupancy_{kind}"
+        check(getattr(lib(), name)(b, c, g, ctypes.addressof(info)), name)
+    else:
+        check(getattr(lib(), entry("occupancy", inst))(
+            OCCUPANCY_KINDS[kind], b, c, g, ctypes.addressof(info)),
+            entry("occupancy", inst))
     return dict(smem=info[0], ctas_per_sm=info[1], stages=info[2])
 
 

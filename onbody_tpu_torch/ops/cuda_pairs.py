@@ -34,14 +34,15 @@ import torch
 
 from onbody_tpu_torch.config import PAIR_FETCHES
 from onbody_tpu_torch.ops import cuda_lib
-from onbody_tpu_torch.ops.kernels import (FM_ROWS, Kernel, featurize,
-                                          pad_fm_rows)
+from onbody_tpu_torch.ops.kernels import (FM_ROWS, KERNELS, Kernel,
+                                          featurize, pad_fm_rows)
 
 GROUP = 8
 # kernel launches by the wrappers, keyed (kind, instance) with kind one of
 # cuda_lib.KINDS' executors ("exec", "exec_t2", "exec_pre", "exec_pre_t2",
-# "exec_dma", "exec_dmap", "exec_static") and the instance as
-# cuda_lib.instance names it (reset by callers that count a run)
+# "exec_dma", "exec_dmap", "exec_static") or K13's "exec_ablate_<mode>",
+# and the instance as cuda_lib.instance names it (reset by callers that
+# count a run)
 LAUNCHES = collections.Counter()
 # elements per (steps, B, B) twin temporary: bounds its chunk of steps
 _TWIN_ELEMS = 1 << 22
@@ -272,15 +273,17 @@ def _check_targets(name: str, run_tgt, nn_keys: int):
 def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
             out_fm) -> bool:
     """Run one launch of a kernel that fetches by id (K1 "exec", K2
-    "exec_t2", K10 "exec_dma", K11 "exec_dmap"); False when the list has
-    no real step."""
+    "exec_t2", K10 "exec_dma", K11 "exec_dmap", K13
+    "exec_ablate_<mode>"); False when the list has no real step."""
     paired = kind == "exec_t2"
     inst = cuda_lib.instance(kernel.name, core)
-    name = cuda_lib.entry(kind, inst)
+    # K13's entry points carry their mode, not an instance
+    ablate = kind.startswith("exec_ablate_")
+    name = f"onbody_{kind}" if ablate else cuda_lib.entry(kind, inst)
     _one_cuda_device(name, tgt_geo, src_fm, group_t, group_s, out_fm)
     _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired)
     _, c, b = src_fm.shape
-    if kind in ("exec_dma", "exec_dmap") and (
+    if (ablate or kind in ("exec_dma", "exec_dmap")) and (
             b % 4 or src_fm.data_ptr() % 16):
         raise ValueError(f"{name}: bulk copies need 16-byte aligned "
                          f"blocks: B={b} must be a multiple of 4 and "
@@ -647,3 +650,89 @@ def exec_pairs_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
         return out_fm
     run = exec_pairs_torch_t2 if twin else exec_pairs_cuda_t2
     return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, core)
+
+
+# ------------------------------------------------- K13: the ablated K10
+
+def _ablate_tile(mode: str, tpos, src):
+    """One slot's term of K13's `mode` for each step: tpos (P, B_t, 3)
+    targets, src (P, C, B_s) source blocks with rows x, y, z, sr, m ->
+    (P, B_t, k): 'full' sum m (|d|^2 + sr^2)^(-3/2) d and 'norsqrt' sum
+    m (|d|^2 + sr^2) d (k 3, d = s - t), 'd2' sum |d|^2 (k 1), 'dma'
+    the target's own lane of rows 0-2 (k 3, no pair sum)."""
+    if mode == "dma":
+        return src[:, 0:3, :].transpose(1, 2)
+    d = [src[:, k:k + 1, :] - tpos[:, :, k:k + 1] for k in range(3)]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    if mode == "d2":
+        return d2.sum(-1, keepdim=True)
+    sr = src[:, 3:4, :]
+    r2 = d2 + sr * sr
+    if mode == "norsqrt":
+        w = src[:, 4:5, :] * r2
+    else:
+        rinv = torch.rsqrt(r2)
+        w = src[:, 4:5, :] * (rinv * rinv * rinv)
+    return torch.stack([(w * dk).sum(-1) for dk in d], dim=-1)
+
+
+def exec_ablate_torch(mode: str, tgt_geo, src_fm, group_t, group_s,
+                      out_fm=None):
+    """Plain twin of K13 in `mode` (cuda_lib.ABLATE_MODES): out_fm
+    (NN_t, 8, B) rows 0-2 (row 0 for 'd2') += the mode's sum over every
+    step of a target row and its non-zero source ids (_ablate_tile), in
+    chunks of steps, index_add_-ed as _twin_add does. Source id 0 is
+    skipped, as the kernel starts no copy for it. Returns out_fm."""
+    if mode not in cuda_lib.ABLATE_MODES:
+        raise ValueError(f"K13 mode {mode!r}: one of "
+                         f"{cuda_lib.ABLATE_MODES}")
+    if out_fm is None:
+        out_fm = _zeros_fm(KERNELS["grav3d"], tgt_geo)
+    keep = group_t != 0
+    gt, gs = group_t[keep].long(), group_s[keep].long()
+    b = tgt_geo.shape[2]
+    step = max(1, _TWIN_ELEMS // (b * b))
+    for p0 in range(0, gt.shape[0], step):
+        sel = slice(p0, p0 + step)
+        t_c = gt[sel]
+        tpos = tgt_geo[t_c][:, :3, :].transpose(1, 2)
+        acc = None
+        for j in range(gs.shape[1]):
+            ids = gs[sel, j]
+            tj = _ablate_tile(mode, tpos, src_fm[ids])
+            tj = torch.where((ids != 0)[:, None, None], tj, 0.0)
+            acc = tj if acc is None else acc + tj
+        add = out_fm.new_zeros((t_c.shape[0],) + out_fm.shape[1:])
+        add[:, :acc.shape[-1]] = acc.transpose(1, 2)
+        out_fm.index_add_(0, t_c, add)
+    return out_fm
+
+
+def exec_ablate(mode: str, tgt_geo, src_fm, group_t, group_s, out_fm=None):
+    """K13, the grav3d executor K10 with its body ablated to `mode`
+    ('dma', 'd2', 'norsqrt', 'full'; see csrc/grav3d_ablate_body.cuh):
+    CUDA tensors launch K13's `mode`, CPU tensors take
+    exec_ablate_torch. tgt_geo (NN_t, 8, B), src_fm (NN_s, C >= 5, B)
+    float32, B a multiple of 4; the work list as for K10 (steps grouped
+    by target row, pad steps group_t == 0). Adds into out_fm (NN_t, 8, B)
+    (zeros when None) and returns it.
+
+    K13 replaces scripts/exp_kernel.py:run with make_variant(mode):
+    K10's schedule, one CTA per run fetching its blocks by bulk
+    asynchronous copies, on the ablated bodies, so the four modes split
+    K10's time into fetch, distances, the rest of the arithmetic and the
+    rsqrt. Each mode reads row 3 as sr and squares it, as the script
+    does (the production rows store sr^2 there). 'dma' is bound by the
+    bytes it fetches, the others by the operations their pairs need."""
+    if tgt_geo.device.type == "cpu":
+        return exec_ablate_torch(mode, tgt_geo, src_fm, group_t, group_s,
+                                 out_fm)
+    if mode not in cuda_lib.ABLATE_MODES:
+        raise ValueError(f"K13 mode {mode!r}: one of "
+                         f"{cuda_lib.ABLATE_MODES}")
+    kernel = KERNELS["grav3d"]
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    _launch(f"exec_ablate_{mode}", kernel, "rm", tgt_geo, src_fm, group_t,
+            group_s, out_fm)
+    return out_fm

@@ -41,6 +41,9 @@ class Kernel:
     # point-major tile entry, kept only for the parity tests
     tile: Callable
     tile_fm: Callable   # (tpos,trad,srcT,core) -> (...,B_t,OD)
+    # (core_name) -> flops per source-target pair, the reference drivers'
+    # counts (ongrav3d.cpp:44-58 and its siblings) for GFlop/s reports
+    flops_fn: Callable
 
 
 def _cross(a, b):
@@ -249,19 +252,23 @@ KERNELS = {
         name="grav3d", pd=3, sd=1, od=3, uses_tr=False, cores=(),
         pairwise=_grav3d_pairwise, tile=_tile_via_fm("grav3d"),
         tile_fm=lambda tpos, trad, srcT, core="rm": _grav3d_tile_fm(
-            tpos, srcT)),
+            tpos, srcT),
+        flops_fn=lambda core: 19),
     "vort2d": Kernel(
         name="vort2d", pd=2, sd=1, od=2, uses_tr=True,
         cores=tuple(cf._CORES_2D), pairwise=_vort2d_pairwise,
-        tile=_tile_via_fm("vort2d"), tile_fm=_vort2d_tile_fm),
+        tile=_tile_via_fm("vort2d"), tile_fm=_vort2d_tile_fm,
+        flops_fn=lambda core: 10 + cf.FLOPS[(core, "2d_tr")]),
     "vort3d": Kernel(
         name="vort3d", pd=3, sd=3, od=3, uses_tr=False,
         cores=tuple(cf._CORES_3D), pairwise=_vort3d_pairwise,
-        tile=_tile_via_fm("vort3d"), tile_fm=_vort3d_tile_fm),
+        tile=_tile_via_fm("vort3d"), tile_fm=_vort3d_tile_fm,
+        flops_fn=lambda core: 23 + cf.FLOPS[(core, "3d")]),
     "vortgrad3d": Kernel(
         name="vortgrad3d", pd=3, sd=3, od=12, uses_tr=False,
         cores=tuple(cf._CORES_3D_GRADS), pairwise=_vortgrad3d_pairwise,
-        tile=_tile_via_fm("vortgrad3d"), tile_fm=_vortgrad3d_tile_fm),
+        tile=_tile_via_fm("vortgrad3d"), tile_fm=_vortgrad3d_tile_fm,
+        flops_fn=lambda core: 56 + cf.FLOPS[(core, "3d_grads")]),
 }
 
 

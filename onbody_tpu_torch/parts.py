@@ -9,6 +9,7 @@ and the list builder rely on).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -58,6 +59,71 @@ def random_in_cube(gen: torch.Generator, n: int, pd: int, sd: int,
         s = (torch.rand((n, sd), generator=gen, device=dev, dtype=dtype)
              * 2 - 1) / float(n)
     return Parts(x=x, r=r, s=s, n_real=n)
+
+
+def random_in_disk(gen: torch.Generator, n: int, pd: int, sd: int,
+                   are_sources: bool = True,
+                   dtype: torch.dtype = torch.float32) -> Parts:
+    """Central star + low-mass orbiters in a disk, on the generator's
+    device (Parts.hpp:112-134): particle i at radius 0.1 + 5 i / n and a
+    uniform angle in the plane of the first two axes, particle 0 at the
+    origin with strength 1, the others 0.1 / n."""
+    dev = gen.device
+    theta = torch.rand((n,), generator=gen, device=dev,
+                       dtype=dtype) * (2.0 * math.pi)
+    rad = 0.1 + 5.0 * torch.arange(n, device=dev, dtype=dtype) / float(n)
+    x = torch.zeros((n, pd), device=dev, dtype=dtype)
+    x[:, 0] = rad * torch.cos(theta)
+    x[:, 1] = rad * torch.sin(theta)
+    x[0] = 0.0
+    s = None
+    if are_sources:
+        s = torch.zeros((n, sd), device=dev, dtype=dtype)
+        s[:, 0] = 0.1 / float(n)
+        s[0, 0] = 1.0
+    r = torch.full((n,), (0.1 / float(n)) ** 2, device=dev, dtype=dtype)
+    r[0] = 0.00465
+    return Parts(x=x, r=r, s=s, n_real=n)
+
+
+def _with_strengths(p: Parts, v: torch.Tensor) -> Parts:
+    """p with every strength component set to the per-particle v."""
+    s = v[:, None].expand(p.s.shape).to(p.s.dtype).contiguous()
+    return dataclasses.replace(p, s=s)
+
+
+def smooth_strengths(p: Parts) -> Parts:
+    """s[d] = (x - y)/n (Parts.hpp:137-145)."""
+    if p.s is None:
+        return p
+    return _with_strengths(p, (p.x[:, 0] - p.x[:, 1]) / float(p.n_real))
+
+
+def central_strengths(p: Parts) -> Parts:
+    """Radially-modulated cosine strengths (Parts.hpp:159-168)."""
+    if p.s is None:
+        return p
+    dist = torch.sqrt(((p.x - 0.5) ** 2).sum(dim=1))
+    return _with_strengths(p, torch.cos(30.0 * torch.sqrt(dist))
+                           / (5.0 * dist + 1.0) / float(p.n_real))
+
+
+def wave_strengths(p: Parts) -> Parts:
+    """s[d] = cos((d+0.7)*10*x[d])/n (Parts.hpp:171-177)."""
+    if p.s is None:
+        return p
+    d = torch.arange(p.sd, device=p.device, dtype=p.x.dtype)
+    xs = (p.x[:, :p.sd] if p.sd <= p.pd else
+          torch.nn.functional.pad(p.x, (0, p.sd - p.pd)))
+    s = torch.cos((d + 0.7) * 10.0 * xs) / float(p.n_real)
+    return dataclasses.replace(p, s=s.to(p.s.dtype))
+
+
+def randomize_radii(gen: torch.Generator, p: Parts) -> Parts:
+    """r *= U(0.5, 1.5), on the generator's device (Parts.hpp:152-156)."""
+    f = torch.rand(p.r.shape, generator=gen, device=gen.device,
+                   dtype=p.r.dtype) + 0.5
+    return dataclasses.replace(p, r=p.r * f)
 
 
 def pad_to(p: Parts, n_pad: int) -> Parts:

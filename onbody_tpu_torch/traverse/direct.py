@@ -10,6 +10,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from onbody_tpu_torch.ops import cuda_direct
@@ -23,10 +25,21 @@ def _target_radii(kernel: Kernel, targs: Parts, dtype):
     return torch.zeros_like(targs.r, dtype=dtype)
 
 
+# bytes of one (targets, sources, OD) fp64 temporary of direct_oracle
+ORACLE_BYTES = 1 << 30
+
+
 def direct_oracle(kernel: Kernel, srcs: Parts, targs: Parts,
                   core: str = "rm", tskip: int = 1,
-                  chunk: int = 256) -> torch.Tensor:
-    """fp64 direct sum over every tskip-th target: (ceil(M/tskip), OD)."""
+                  chunk: Optional[int] = None) -> torch.Tensor:
+    """fp64 direct sum over every tskip-th target: (ceil(M/tskip), OD).
+    Targets go `chunk` at a time; by default at most 256, fewer where a
+    (chunk, S, OD) temporary would pass ORACLE_BYTES (the pairwise forms
+    keep several of them: at 1e6 sources 256 targets would take 6-25 GB
+    each). The chunking does not change the result."""
+    if chunk is None:
+        per_target = srcs.n * kernel.od * 8
+        chunk = max(1, min(256, ORACLE_BYTES // per_target))
     f64 = torch.float64
     tx = targs.x[::tskip].to(f64)
     tr = _target_radii(kernel, targs, f64)[::tskip]

@@ -1,11 +1,12 @@
 """O(N) dual-tree traversal ("fastsumm") solver (port of
-onbody_tpu/traverse/dtt.py, level traversal, order >= 0).
+onbody_tpu/traverse/dtt.py, level traversal).
 
 Lists come from the simultaneous-descent builder, every interaction
 type runs through the one pair executor (far contributions land in the
 target equivalent rows of the same accumulator), and the prolongation is
 a top-down per-level barycentric interpolation (calcBarycentricDownward,
-BarycentricLagrange.hpp:63-166).
+BarycentricLagrange.hpp:63-166) at order >= 0, a copy from the merged
+parent points at order < 0 (pair-merge).
 """
 
 from __future__ import annotations
@@ -46,6 +47,23 @@ def _downward(out, tree_nc, tree_ns, tgt_geo, order: int, levels: int,
             pu = torch.repeat_interleave(out[p0:p1, :M], 2, dim=0)
             out[c0:c1, :width] += eq.prolong_factored(pts, pnc, pns, order,
                                                       pu)
+    return out
+
+
+def _downward_copy(out, levels: int, block_size: int):
+    """Order < 0 prolongation, in place on out (NN, B, OD): child point i
+    inherits parent equivalent i // 2, left children from the parent's
+    first half and right children from its second, the halves merged
+    from them (ongrav3d.cpp:241-251, barneshut.hpp:974-976)."""
+    bs = block_size
+    h = bs // 2
+    for l in range(1, levels + 1):
+        np_l = 1 << (l - 1)
+        pu = out[np_l:2 * np_l, :bs]                     # (np_l, bs, OD)
+        left = torch.repeat_interleave(pu[:, :h], 2, dim=1)
+        right = torch.repeat_interleave(pu[:, h:], 2, dim=1)
+        add = torch.stack([left, right], dim=1).reshape(2 * np_l, bs, -1)
+        out[2 * np_l:4 * np_l, :bs] += add
     return out
 
 
@@ -98,8 +116,11 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
     out, info = pexec.exec_pairs(kernel, cfg, plan, pl, cfg.frontier_width,
                                  cfg.cap_groups_dtt, raw2=pl2, timer=timer)
     with phase(timer, "downward"):
-        out = _downward(out, ttree.nc, ttree.ns, plan.tgt_geo, cfg.order,
-                        ttree.levels, ttree.block_size)
+        if cfg.order >= 0:
+            out = _downward(out, ttree.nc, ttree.ns, plan.tgt_geo,
+                            cfg.order, ttree.levels, ttree.block_size)
+        else:
+            out = _downward_copy(out, ttree.levels, ttree.block_size)
     if not unscramble:
         nleaf, bs = ttree.nleaf, ttree.block_size
         return out[nleaf:2 * nleaf, :bs, :].reshape(-1, kernel.od), info

@@ -53,9 +53,10 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
     check_supported(cfg, kernel)
     srcs = P.astype(srcs, cfg.storage_dtype)
     targs = P.astype(targs, cfg.storage_dtype)
-    kw = dict(block_size=cfg.block_size, mode=cfg.tree_mode,
-              span=cfg.tree_span, span_top=cfg.tree_span_top,
-              span_bot=cfg.tree_span_bot)
+    # order < 0 (pair-merge) needs the refined intra-leaf ordering
+    kw = dict(block_size=cfg.block_size, refine=cfg.order < 0,
+              mode=cfg.tree_mode, span=cfg.tree_span,
+              span_top=cfg.tree_span_top, span_bot=cfg.tree_span_bot)
     with phase(timer, "tree"):
         stree, ss, sg = tree_build.build_tree(srcs, **kw)
         # kernels that ignore target radii get zero radii (reference
@@ -63,17 +64,20 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
         ttree, ts, tg = tree_build.build_tree(targs, need_r=kernel.uses_tr,
                                               **kw)
     with phase(timer, "equivalents"):
-        if cfg.lean_plan:
+        if cfg.lean_plan and cfg.order >= 0:
             # the feature-major arrays directly, no point-major Blocks;
             # a dma-family fetch stores the rows padded to 8, as the
-            # reference does (treecode.py:121), pregather the lean rows
+            # reference does (treecode.py:121), pregather the lean rows.
+            # The lean builders are barycentric only: order < 0 takes
+            # the Blocks path, as in the reference (treecode.py:113)
             pad8 = cfg.pair_fetch.startswith("dma")
             src_fm = eq.barycentric_fm(stree, ss, cfg.order, kernel.name,
                                        pad8=pad8)
             tgt_geo = eq.target_geo_fm(ttree, ts, cfg.order)
             sblocks = tblocks = None
         else:
-            sblocks = eq.barycentric_blocks(stree, ss, cfg.order)
+            sblocks = (eq.barycentric_blocks(stree, ss, cfg.order)
+                       if cfg.order >= 0 else eq.pairmerge_blocks(stree, ss))
             tblocks = eq.target_blocks(ttree, ts, cfg.order)
             src_fm = pp.build_fm_blocks(kernel, sblocks.pos, sblocks.rad,
                                         sblocks.s)

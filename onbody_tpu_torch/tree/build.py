@@ -16,7 +16,8 @@ particles on only the real prefix of the partial segment is.
 
 Node boxes are the real-particle boxes of each level's segments. Later
 sorts only permute inside deeper segments, so they are computed once
-from the final order.
+from the final order; the same holds for the sorts `refine` adds below
+the leaf level.
 """
 
 from __future__ import annotations
@@ -220,12 +221,14 @@ def build_tree(p: Parts, block_size: int = 128, refine: bool = False,
 
     gidx[i] is the original index of the particle in slot i (pads have
     gidx >= n_real). mode 'median' sorts every level; 'span' lets one
-    sort serve `span` levels for the top `span_top` levels. need_r=False
+    sort serve `span` levels for the top `span_top` levels. refine=True
+    goes on splitting below the leaf level, log2(n_pad) levels in all,
+    so each leaf's slots are ordered as a binary tree of their own (the
+    reference's refineTree/refineLeaf ordering, which the pair-merge
+    equivalents of order < 0 need); boxes and stats are those of levels
+    0..levels, which the finer sorts do not change. need_r=False
     (targets of a kernel that ignores target radii) returns zero radii,
     as the reference does."""
-    if refine:
-        raise NotImplementedError("refine=True (pair-merge ordering) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 11)")
     if mode not in ("median", "span"):
         raise NotImplementedError(f"tree mode {mode!r} is not ported "
                                   "(ROADMAP.md Queue 1 item 17)")
@@ -238,7 +241,10 @@ def build_tree(p: Parts, block_size: int = 128, refine: bool = False,
     x = pp.x.clone()
     gidx = torch.arange(n_pad, dtype=torch.int64, device=dev)
     q = span if mode == "span" else 1
-    for l in _sort_levels(levels, n_pad, q, span_top, span_bot):
+    # refine: the splits go on inside the leaves down to segments of two
+    # (the pair-merge equivalents merge adjacent slots)
+    sort_levels = n_pad.bit_length() - 1 if refine else levels
+    for l in _sort_levels(sort_levels, n_pad, q, span_top, span_bot):
         _split(x, gidx, n_real, l)
 
     nn = 2 << levels

@@ -1,10 +1,13 @@
-"""Barycentric Lagrange equivalent particles (port of
-onbody_tpu/tree/equivalents.py, order >= 0).
+"""Equivalent particles (port of onbody_tpu/tree/equivalents.py).
 
-Each interior node carries a Chebyshev-2nd-kind tensor grid of
-M = (order+1)^PD proxies (BarycentricLagrange.hpp:256-417); leaf
+Order >= 0: each interior node carries a Chebyshev-2nd-kind tensor grid
+of M = (order+1)^PD proxies (BarycentricLagrange.hpp:256-417); leaf
 particles are anterpolated onto their parents' grids and proxies onto
 grandparents', one batched per-dimension factor contraction per level.
+Order < 0: pair-merge equivalents (barneshut.hpp:947-1061), each node's
+block_size proxies merged pairwise, strength-weighted, from its
+children's 2*block_size; they need build_tree(refine=True)'s ordering,
+which keeps merged pairs spatially close.
 
 Output is the unified `Blocks` array: row i holds node i's proxies if
 interior, its particles if a leaf; row 0 is the inert pad row (position
@@ -211,15 +214,99 @@ def barycentric_blocks(tree: Tree, sorted_parts: Parts,
     return Blocks(pos=pos, rad=rad, s=st)
 
 
+# ------------------------------------------------- pair-merge (order < 0)
+
+def _merge_pairs(pos, rad, st):
+    """Strength-weighted merge of adjacent pairs (barneshut.hpp:986-1000):
+    (N, 2k, PD) positions, (N, 2k) radii, (N, 2k, SD) strengths ->
+    (N, k, ...). Weights |s| (SD 1) or |s|_2, at least 1e-20; positions
+    the weighted mean, radii the weighted RMS, strengths the sum."""
+    n, twok, pd = pos.shape
+    k = twok // 2
+    p2 = pos.reshape(n, k, 2, pd)
+    r2 = rad.reshape(n, k, 2)
+    s2 = st.reshape(n, k, 2, st.shape[-1])
+    if st.shape[-1] == 1:
+        w = s2[..., 0].abs()
+    else:
+        w = torch.sqrt((s2 * s2).sum(-1))
+    w = torch.clamp(w, min=1e-20)
+    wsum = w.sum(-1, keepdim=True)                       # (n, k, 1)
+    mpos = (p2 * w[..., None]).sum(2) / wsum
+    mrad = torch.sqrt((r2 * r2 * w).sum(2) / wsum[..., 0])
+    mstr = s2.sum(2)
+    return mpos, mrad, mstr
+
+
+def _pairmerge_impl(x, r, s, levels: int, block_size: int):
+    """Blocks (NN, block_size, ...) of the pair-merge equivalents: leaf
+    rows the sorted particles, each interior node its children's
+    2*block_size entries merged to block_size, bottom-up; row 0 inert
+    (position 0, radius 1, zero strength)."""
+    pd, sd = x.shape[1], s.shape[1]
+    nleaf = 1 << levels
+    nn = 2 * nleaf
+    pos = x.new_zeros((nn, block_size, pd))
+    rad = x.new_ones((nn, block_size))
+    st = x.new_zeros((nn, block_size, sd))
+    pos[nleaf:] = x.view(nleaf, block_size, pd)
+    rad[nleaf:] = r.view(nleaf, block_size)
+    st[nleaf:] = s.view(nleaf, block_size, sd)
+    # node at level l merges its children's 2*bs entries to bs
+    cp = x.reshape(nleaf // 2, 2 * block_size, pd)
+    cr = r.reshape(nleaf // 2, 2 * block_size)
+    cs = s.reshape(nleaf // 2, 2 * block_size, sd)
+    for l in range(levels - 1, -1, -1):
+        nseg = 1 << l
+        mp, mr, ms = _merge_pairs(cp, cr, cs)
+        pos[nseg:2 * nseg] = mp
+        rad[nseg:2 * nseg] = mr
+        st[nseg:2 * nseg] = ms
+        if l > 0:
+            cp = mp.reshape(nseg // 2, 2 * block_size, pd)
+            cr = mr.reshape(nseg // 2, 2 * block_size)
+            cs = ms.reshape(nseg // 2, 2 * block_size, sd)
+    return pos, rad, st
+
+
+def _pad_block_width(pos, rad, st, width: int):
+    """Pad blocks to `width` slots with inert ones: zero strength, radius
+    1, position the block's slot-0 point (never a bogus in-domain
+    origin)."""
+    nn, w0, pd = pos.shape
+    extra = width - w0
+    if extra <= 0:
+        return pos, rad, st
+    pos = torch.cat([pos, pos[:, :1, :].expand(nn, extra, pd)], dim=1)
+    rad = torch.cat([rad, rad.new_ones((nn, extra))], dim=1)
+    if st is not None:
+        st = torch.cat([st, st.new_zeros((nn, extra, st.shape[2]))], dim=1)
+    return pos, rad, st
+
+
+def pairmerge_blocks(tree: Tree, sorted_parts: Parts) -> Blocks:
+    """Source Blocks with pair-merge equivalents (order < 0), rows
+    block_width(block_size) wide. Needs build_tree(refine=True)."""
+    pos, rad, st = _pairmerge_impl(sorted_parts.x, sorted_parts.r,
+                                   sorted_parts.s, tree.levels,
+                                   tree.block_size)
+    pos, rad, st = _pad_block_width(pos, rad, st,
+                                    block_width(tree.block_size))
+    return Blocks(pos=pos, rad=rad, s=st)
+
+
 def target_blocks(tree: Tree, sorted_targs: Parts, order: int) -> Blocks:
     """Target-side Blocks: leaf rows the targets, interior rows the
-    equivalent target points (the nodes' grids); no strengths."""
+    equivalent target points, no strengths: the nodes' grids (order
+    >= 0) or their pair-merged points with unit weights (order < 0)."""
     x, r = sorted_targs.x, sorted_targs.r
     pd = x.shape[1]
     width = block_width(tree.block_size)
     if order < 0:
-        raise NotImplementedError("pair-merge targets (order < 0) are not "
-                                  "ported yet (ROADMAP.md Queue 1 item 11)")
+        pos, rad, _ = _pairmerge_impl(x, r, x.new_ones((x.shape[0], 1)),
+                                      tree.levels, tree.block_size)
+        pos, rad, _ = _pad_block_width(pos, rad, None, width)
+        return Blocks(pos=pos, rad=rad, s=None)
     _check_one_part(width, order, pd)
     M = (order + 1) ** pd
     nleaf, bs = tree.nleaf, tree.block_size

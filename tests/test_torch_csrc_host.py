@@ -479,3 +479,66 @@ def test_host_k12_matches_twin(host_lib, name, core, pad8):
         rms, mx = _errors(out, ref)
         assert rms <= REL_RMS and mx <= MAX_REL
     assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()
+
+
+def _ablate_entry(lib, kind, mode):
+    fn = getattr(lib, f"onbody_{kind}_ablate_{mode}")
+    fn.argtypes = (cuda_lib._ARGTYPES["exec_dma"] if kind == "exec"
+                   else cuda_lib._ARGTYPES["occupancy"][1:])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run_ablate(lib, mode, tgt_geo, src_fm, gt, gs, out):
+    run_tgt, run_off, pair_s = cuda_pairs._runs(gt, gs)
+    _, c, b = src_fm.shape
+    return _ablate_entry(lib, "exec", mode)(
+        tgt_geo.data_ptr(), src_fm.data_ptr(), out.data_ptr(),
+        run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
+        run_tgt.numel(), b, c, pair_s.shape[1], out.shape[1], None)
+
+
+def _ablate_rows(seed):
+    """exp_kernel's rows (uniform [0, 1), row 3 read as sr) at B 32."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((16, 8, 32), generator=g),
+            torch.rand((16, 8, 32), generator=g))
+
+
+@pytest.mark.parametrize("mode", cuda_lib.ABLATE_MODES)
+def test_host_k13_matches_twin(host_lib, mode):
+    """K13 in each mode on a list with pads between and after the runs
+    and inert slots: its twin within the kernel limits, rows without a
+    run untouched, the rows beyond the mode's outputs zero."""
+    tgt_geo, src_fm = _ablate_rows(16)
+    gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0], seed=17)
+    out = torch.zeros((16, 8, 32))
+    assert _run_ablate(host_lib, mode, tgt_geo, src_fm, gt, gs, out) == 0
+    twin = cuda_pairs.exec_ablate_torch(mode, tgt_geo, src_fm, gt, gs)
+    assert torch.isfinite(out).all()
+    rms, mx = _errors(out, twin)
+    assert rms <= REL_RMS and mx <= MAX_REL
+    assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()
+    assert not out[:, 1 if mode == "d2" else 3:].any()
+
+
+def test_host_k13_full_is_k10_on_squared_rows(host_lib):
+    """'full' squares row 3 once per source as it stages the block; on
+    rows that store sr^2 there, as the production rows do, K10 with the
+    grav3d body gives the same result bit for bit."""
+    tgt_geo, src_fm = _ablate_rows(18)
+    gt, gs = _adjacent_groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
+    full = torch.zeros((16, 8, 32))
+    assert _run_ablate(host_lib, "full", tgt_geo, src_fm, gt, gs, full) == 0
+    squared = src_fm.clone()
+    squared[:, 3] = src_fm[:, 3] * src_fm[:, 3]
+    k10 = torch.zeros_like(full)
+    assert _run_exec(host_lib, "exec_dma", get_kernel("grav3d"), "rm",
+                     tgt_geo, squared, gt, gs, k10) == 0
+    assert torch.equal(full, k10)
+
+
+def test_host_library_exports_k13_entries(host_lib):
+    for mode in cuda_lib.ABLATE_MODES:
+        for kind in ("exec", "occupancy"):
+            _ablate_entry(host_lib, kind, mode)

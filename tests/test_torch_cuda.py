@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (K1, K2 pair executors; K8, K9
 the same on pre-gathered sources; K10, K11 fetching by bulk copies; K12
-one row per step; K4 direct) against their plain twins and the fp64
+one row per step; K13, K10 on the ablated grav3d bodies; K4 direct)
+against their plain twins and the fp64
 oracle, for every (workload, core) instantiation, and the slice on the
 card against the slice on the CPU for every workload and fetch. Every
 test needs a CUDA device and skips without one.
@@ -400,3 +401,42 @@ def test_fetch_slice_on_card_matches_cpu(dev, name, fetch):
                                                              0)
     assert int(info.overflow) == int(cpu_info.overflow) == 0
     assert rel_rms(out.cpu(), cpu_out) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", cuda_lib.ABLATE_MODES)
+def test_k13_matches_twin(dev, mode):
+    """K13 in each mode on exp_kernel's list at a small size (wrapping
+    target ids, sorted into one run per target) against its twin on the
+    same tensors; launches counted; 'full' equals K10 grav3d on rows
+    that store sr^2."""
+    from onbody_tpu_torch.scripts import exp_kernel
+    tgt_geo, src_fm, gt, gs = exp_kernel.make_problem(
+        128, 16, dev, nn=512, p=4096)
+    cuda_pairs.LAUNCHES.clear()
+    got = exp_kernel.run(mode, tgt_geo, src_fm, gt, gs)
+    twin = cuda_pairs.exec_ablate_torch(mode, tgt_geo, src_fm, gt, gs)
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[(f"exec_ablate_{mode}", "grav3d")] == 1
+    assert torch.isfinite(got).all()
+    assert rel_rms(got.cpu(), twin.cpu()) <= 1e-5
+    assert scale_rel_max(got.cpu(), twin.cpu()) <= 1e-4
+    occ = cuda_lib.occupancy(f"ablate_{mode}", "grav3d", 128, 8, 16)
+    assert occ["ctas_per_sm"] >= 1 and occ["stages"] >= 2
+    if mode == "full":
+        squared = src_fm.clone()
+        squared[:, 3] = src_fm[:, 3] * src_fm[:, 3]
+        k10 = cuda_pairs.exec_pairs_dma_cuda(KER, tgt_geo, squared, gt, gs,
+                                             final=False)
+        assert torch.equal(got, k10)
+
+
+def test_k13_refuses_two_runs_of_one_target(dev):
+    """The script's list unsorted: a target in two runs would be two
+    CTAs racing on one row; the wrapper raises."""
+    from onbody_tpu_torch.scripts import exp_kernel
+    tgt_geo, src_fm, _, _ = exp_kernel.make_problem(128, 16, dev, nn=512,
+                                                    p=4096)
+    gt, gs = exp_kernel.make_list(512, 4096, 16,
+                                  torch.Generator(device=dev).manual_seed(0))
+    with pytest.raises(ValueError, match="two separate runs"):
+        cuda_pairs.exec_ablate("full", tgt_geo, src_fm, gt, gs)

@@ -106,7 +106,9 @@ def test_slice_stats_and_launch_counts_on_cpu(slice_run):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("order", -1, "item 11"), ("tree_mode", "morton", "item 17"),
+    # order < 0 (pair-merge) is ported; order 6's 343 proxies exceed the
+    # 128-slot rows at block 32: split rows
+    ("order", 6, "item 11"), ("tree_mode", "morton", "item 17"),
     ("tree_mode", "bisect", "item 17"), ("tree_quant", "gather", "item 17"),
     # lean rows are block_size wide (not rounded up to 128): order 3 at
     # block 32 needs 64 > 32 slots there, which is split rows

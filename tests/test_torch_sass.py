@@ -121,3 +121,53 @@ def test_every_kernel_kind_has_a_sass_name():
         cs.sass_issued(loops, "exec", "grav3d")
     with pytest.raises(LookupError):
         cs.sass_issued(loops, "exec_pre_t2", "grav3d")
+
+
+@pytest.mark.parametrize("mode", ["dma", "d2", "norsqrt", "full"])
+def test_ablate_ops_match_body_header(mode):
+    """K13's bounds read the per-pair operations counted in
+    grav3d_ablate_body.cuh for each mode."""
+    text = (CSRC / "grav3d_ablate_body.cuh").read_text()
+    m = re.search(rf"{mode}:\s+needs\s+(\d+)\s+FP32-pipe\s+operations\s+"
+                  rf"and\s+(\d+)\s+MUFU", text)
+    assert m is not None
+    assert ((int(m.group(1)), int(m.group(2)))
+            == cs.ABLATE_OPS[f"ablate_{mode}"])
+    assert set(cs.ABLATE_BODY) == {"dma", "d2", "norsqrt", "full"}
+
+
+def _ablate_listing(lds_in_dma: bool) -> str:
+    """Four K13 functions as cuobjdump prints them: a pair loop for the
+    arithmetic modes, the dma body's lane loads in its block loop."""
+    out = ["\tcode for sm_90a"]
+    for body in cs.ABLATE_BODY.values():
+        out.append(f"\t\tFunction : _ZN6onbody15exec_fetch_runsINS_{body}"
+                   "ELb0EEEvPKfS3_PfPKiS6_S6_iiiii")
+        ops = ["LDS R6, [R5]", "FADD R7, R6, -R8", "FFMA R9, R7, R7, R9"]
+        if "Dma" in body and not lds_in_dma:
+            ops = ["FADD R7, R6, -R8"]
+        for i, op in enumerate(ops + ["@P2 BRA 0x0"]):
+            out.append(f"        /*{i * 16:04x}*/                   {op} ;")
+        out.append(f"        /*{len(ops) * 16 + 16:04x}*/  EXIT ;")
+    return "\n".join(out) + "\n"
+
+
+def test_sass_ablate_reports_and_checks_shared_loads(capsys):
+    cs.sass_ablate(_ablate_listing(True))
+    text = capsys.readouterr().out
+    assert text.count("sass exec_ablate_") == 4
+    assert "needed per pair 12 FP32 + 1 MUFU" in text
+    with pytest.raises(AssertionError, match="no shared loads"):
+        cs.sass_ablate(_ablate_listing(False))
+
+
+def test_ablate_bound_is_bytes_for_dma():
+    t, pipe = cs.bound_s(1e12, "ablate_dma", 2e9)
+    assert t == 0.0
+    b = cs._bound("ablate_dma", 1e12, 3.35e9, 2e9)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] == pytest.approx(1.0)
+    t, pipe = cs.bound_s(1e12, "ablate_norsqrt", 2e9)
+    assert pipe == "fp32"
+    assert t == pytest.approx(1e12 * 10 / (132 * 128 * 2e9))
+    assert cs.bound_s(1e12, "ablate_full", 2e9) == cs.bound_s(1e12,
+                                                              "grav3d", 2e9)

@@ -109,5 +109,7 @@ def test_plan_and_unported_modes():
     sx, sr, ss, _, _ = make_inputs(30, 100)
     with pytest.raises(NotImplementedError, match="item 17"):
         tbuild.build_tree(torch_parts(sx, sr, ss), BS, mode="morton")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbuild.build_tree(torch_parts(sx, sr, ss), BS, refine=True)
+    # refine=True (the pair-merge ordering) is ported: it builds a
+    # permutation (held to the reference in test_torch_pairmerge.py)
+    _, _, g = tbuild.build_tree(torch_parts(sx, sr, ss), BS, refine=True)
+    assert torch.equal(g.sort().values, torch.arange(g.numel()))
