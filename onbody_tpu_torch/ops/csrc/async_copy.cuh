@@ -1,10 +1,13 @@
-// The asynchronous copy of the fetch kernels K10 and K11 (pairs.cuh):
-// one thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk)
-// of contiguous global memory into shared memory, and the copy reports
-// its bytes to an mbarrier in shared memory that the readers wait on.
-// Nothing else lives here: the host emulation of the sources
-// (tests/test_torch_csrc_host.py) swaps this one header for a
-// synchronous version.
+// The asynchronous copies of the executors (pairs.cuh). K10 and K11: one
+// thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk) of
+// contiguous global memory into shared memory, and the copy reports its
+// bytes to an mbarrier in shared memory that the readers wait on. K8/K9's
+// segment kernel: every thread copies single floats with cp.async (4
+// bytes, so a copy can transpose a block into its staged layout), commits
+// them as one group per staged block and waits until at most N groups
+// are pending. Nothing else lives here: the host emulation of the sources
+// (tests/test_torch_csrc_host.py) swaps this one header for a synchronous
+// version.
 //
 // Contract: addresses and sizes are multiples of 16 bytes; each mbarrier
 // is initialised with an arrival count of 1, and each use of it is one
@@ -65,6 +68,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// One float from global to shared memory, asynchronously (LDGSTS).
+__device__ __forceinline__ void copy4_async(float* dst_smem,
+                                            const float* src_gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst_smem)),
+               "l"(src_gmem)
+               : "memory");
+}
+
+// Closes this thread's copies started since the last commit into a group.
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Blocks until at most kPending of this thread's groups are incomplete;
+// a __syncthreads() after it makes every thread's copies visible.
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace onbody

@@ -70,4 +70,53 @@ __device__ __forceinline__ void block2(const float* __restrict__ sm,
   }
 }
 
+// Floats a source takes in the staged layout of K8/K9's segment kernel
+// (pairs.cuh): its kRows values side by side, padded to whole float4s.
+template <class Body>
+__host__ __device__ constexpr int aos_floats() {
+  return (Body::kRows + 3) / 4 * 4;
+}
+
+// The pair loop of K8/K9: the first n sources of a block staged source by
+// source (aos_floats<Body>() each, 16-byte aligned) against kN targets.
+// One source is brought in by one 16-byte broadcast load per four rows
+// (one for vort2d's 4 rows, two for the 5 and 7 of the 3D bodies) and
+// serves all kN targets, so the shared loads per pair fall from kRows to
+// (kRows / 4 rounded up) / kN. Each target sums the block into its own
+// partial in source order and adds it onto acc once: per target, block()'s
+// order of sums.
+template <class Body, int kN>
+__device__ __forceinline__ void block_aos(const float* __restrict__ sm, int n,
+                                          const typename Body::Tgt (&t)[kN],
+                                          float (&acc)[kN][Body::kOut]) {
+  constexpr int kVec = aos_floats<Body>() / 4;
+  float part[kN][Body::kOut];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) part[k][o] = 0.f;
+  }
+#pragma unroll 2
+  for (int q = 0; q < n; ++q) {
+    const float4* p = reinterpret_cast<const float4*>(sm) + q * kVec;
+    float v[4 * kVec];
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      const float4 f = p[c];
+      v[4 * c] = f.x;
+      v[4 * c + 1] = f.y;
+      v[4 * c + 2] = f.z;
+      v[4 * c + 3] = f.w;
+    }
+    const typename Body::Src s = Body::load_src(v, 1);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) Body::pair(s, t[k], part[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[k][o] += part[k][o];
+  }
+}
+
 }  // namespace onbody

@@ -2,17 +2,21 @@
 //   onbody_exec_<INST>     K1, the unpaired grouped executor (pairs.cuh)
 //   onbody_exec_t2_<INST>  K2, the sibling-paired executor (pairs.cuh)
 //   onbody_direct_<INST>   K4, the direct sum (direct.cuh)
-//   onbody_exec_pre_<INST>     K8, the unpaired executor on pre-gathered
-//                              sources (pairs.cuh)
-//   onbody_exec_pre_t2_<INST>  K9, its sibling-paired form (pairs.cuh)
+//   onbody_exec_pre_seg_<INST>     K8's segment kernel: the unpaired
+//                                  executor on pre-gathered sources, one
+//                                  CTA per segment of a run (pairs.cuh)
+//   onbody_exec_pre_t2_seg_<INST>  K9's, its sibling-paired form
+//   onbody_exec_pre_reduce_<INST>  K8/K9's ordered reduction of the split
+//                                  runs' partial rows (rows 1 or 2)
 //   onbody_exec_dma_<INST>     K10, K1's sum with source blocks fetched
 //                              by bulk asynchronous copies (pairs.cuh)
 //   onbody_exec_dmap_<INST>    K11, K10 with adjacent ids bundled into
 //                              one copy (pairs.cuh)
 //   onbody_exec_static_<INST>  K12, one output row per pre-gathered step
 //                              (pairs.cuh)
-//   onbody_occupancy_<INST>    K10/K11/K12's shared memory per CTA,
-//                              resident CTAs per SM and ring stages
+//   onbody_occupancy_<INST>    K10/K11/K12's and K8/K9's segment
+//                              kernels' shared memory per CTA, resident
+//                              CTAs per SM and ring stages
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.
 #pragma once
@@ -37,23 +41,33 @@
                                            run_off, pair_s, n_runs, B, C,  \
                                            G, od8, stream);                \
   }                                                                        \
-  extern "C" int onbody_exec_pre_##INST(                                   \
+  extern "C" int onbody_exec_pre_seg_##INST(                               \
       const float* tgt_geo, const float* src_gathered, float* out,         \
-      const int* run_tgt, const int* run_off, const int* steps,            \
-      const int* n_slots, int n_runs, int B, int C, int G, int od8,        \
+      float* partials, const int* run_tgt, const int* run_seg,             \
+      const int* seg_run, const int* seg_off, const int* steps,            \
+      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
       void* stream) {                                                      \
-    return onbody::launch_exec_pre<BODY, false>(                           \
-        tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots,      \
-        n_runs, B, C, G, od8, stream);                                     \
+    return onbody::launch_exec_pre_seg<BODY, false>(                       \
+        tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
+        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
   }                                                                        \
-  extern "C" int onbody_exec_pre_t2_##INST(                                \
+  extern "C" int onbody_exec_pre_t2_seg_##INST(                            \
       const float* tgt_geo, const float* src_gathered, float* out,         \
-      const int* run_tgt, const int* run_off, const int* steps,            \
-      const int* n_slots, int n_runs, int B, int C, int G, int od8,        \
+      float* partials, const int* run_tgt, const int* run_seg,             \
+      const int* seg_run, const int* seg_off, const int* steps,            \
+      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
       void* stream) {                                                      \
-    return onbody::launch_exec_pre<BODY, true>(                            \
-        tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots,      \
-        n_runs, B, C, G, od8, stream);                                     \
+    return onbody::launch_exec_pre_seg<BODY, true>(                        \
+        tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
+        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
+  }                                                                        \
+  extern "C" int onbody_exec_pre_reduce_##INST(                            \
+      float* out, const float* partials, const int* run_tgt,               \
+      const int* run_seg, int n_runs, int rows, int B, int od8,            \
+      void* stream) {                                                      \
+    return onbody::launch_reduce_segs<BODY>(out, partials, run_tgt,        \
+                                            run_seg, n_runs, rows, B, od8, \
+                                            stream);                       \
   }                                                                        \
   extern "C" int onbody_exec_dma_##INST(                                   \
       const float* tgt_geo, const float* src_fm, float* out,               \

@@ -1,7 +1,8 @@
 // Grouped pair executors, templated on the per-pair body (body.cuh), one
 // instantiation per (workload, core): K1 (unpaired) and K2 (sibling-paired)
 // fetch their source blocks by id; K8 and K9 (further down) compute the
-// same sums from source blocks gathered contiguous per step; K10 and K11
+// same sums from source blocks gathered contiguous per step, one CTA per
+// segment of a run and an ordered reduction of the split runs; K10 and K11
 // fetch by id with bulk asynchronous copies, K11 two adjacent blocks per
 // copy; K12 gives every step its own output row.
 //
@@ -122,38 +123,8 @@ int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
 }
 
 // ---------------------------------------------------------------------
-// K8 (unpaired) and K9 (sibling-paired): the executors on PRE-GATHERED
-// sources. Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre with
-// _body_pre (K8) and :_exec_chunk_pre_t2 with _body_pre_t2 (K9).
-//
-// A torch row gather (ops/cuda_pairs.py:_pregather) has laid step p's G
-// source blocks side by side at src_gathered + p*G*C*B, C rows of B
-// floats each. The TPU kernels take that buffer as one pipelined block
-// per sequential grid step; here, as in K1/K2, one CTA owns one RUN of
-// equal target keys, keeps the sums in registers and adds them onto the
-// output row once (a run cut by a chunk boundary continues in the next
-// launch from that partial sum). What differs from K1/K2 is the fetch:
-// the CTA is given the STEP indices of its run, not source ids, so the
-// address of every block follows from the step alone (no dependent id
-// load), a step's blocks are one contiguous stretch read coalesced, and
-// several blocks are staged per barrier pair (as many as fit kPreStage
-// bytes of shared memory). Each staged block is still summed into its own
-// partial and added onto the row's sum in slot order, which is K1/K2's
-// order: on the same groups K8 gives K1's result and K9 gives K2's.
-//
-// The kernels have no source ids, so they cannot see the inert pad row:
-// n_slots[p] (or G when the pointer is null) says how many leading slots
-// of step p to evaluate; the wrapper sets it to the last real slot, and a
-// skipped slot holds the inert row, whose contribution is exactly zero.
-// Bodies read rows 0..kRows-1 at row stride B inside a block of C rows, so
-// the lean layout (C = kRows) and the layout padded to 8 rows both work.
-//
-// What bounds it: per step G*B*B pairs (twice that in K9) against
-// G*C*B*4 gathered bytes read once, plus the gather pass outside that
-// wrote them; at B = 128 the byte time of a light body (vort2d) is of the
-// order of its operation time (PERF.md states both per instantiation).
-// Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
-// row*od8*B output offsets at 1e8 do not.
+// Pre-gathered blocks staged per barrier pair: K12's staging (further
+// down), and K8/K9's before they were split into segments.
 
 constexpr int kPreStageBytes = 32 * 1024;
 
@@ -196,67 +167,283 @@ int pre_stage(int B, int G) {
   return stage < 1 ? 1 : (stage > G ? G : stage);
 }
 
+// ---------------------------------------------------------------------
+// K8 (unpaired) and K9 (sibling-paired): the executors on PRE-GATHERED
+// sources, a segment kernel (exec_pre_segs) and an ordered reduction
+// (reduce_segs). Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre
+// with _body_pre (K8) and :_exec_chunk_pre_t2 with _body_pre_t2 (K9).
+//
+// A torch row gather (ops/cuda_pairs.py:_pregather) has laid step p's G
+// source blocks side by side at src_gathered + p*G*C*B, C rows of B
+// floats each. The TPU kernels walk that buffer in one sequential grid,
+// carrying a target row's sum in VMEM from step to step. Here the
+// wrapper cuts every run of equal target keys into SEGMENTS of at most
+// S consecutive steps (ops/cuda_pairs.py:_plan_segments; S is chosen so
+// that a chunk fills about two waves of CTAs, so a treecode leaf's run of
+// 27-77 steps no longer leaves the card to a few hundred CTAs). One CTA
+// per segment sums its steps' blocks in slot order into registers. A run
+// of one segment adds its sums onto its output row(s), as before; a
+// segment of a split run writes them as a partial row (kOut x B; two in
+// K9) into `partials`, a scratch the wrapper allocates per chunk (one
+// row, or two, per segment: bounded by the chunk, not by N). The
+// reduction then adds each split run's partials onto its output row(s)
+// in segment order. No atomics: the result depends on the list and S
+// only, never on the schedule, and a run cut by a chunk boundary
+// continues from the accumulator in the next launch. On runs of one
+// segment K8 gives K1's sums and K9 K2's, bit for bit (the same order).
+//
+// The kernels have no source ids, so they cannot see the inert pad row:
+// n_slots[p] (or G when the pointer is null) says how many leading slots
+// of step p to evaluate; the wrapper sets it to the last real slot, and a
+// skipped slot holds the inert row, whose contribution is exactly zero.
+// Pad steps are never part of a run, which is what keeps K9's rows 0 and
+// 1 (the root accumulator) untouched. Bodies read rows 0..kRows-1 of a
+// block of C rows, so the lean layout (C = kRows) and the layout padded
+// to 8 rows both work.
+//
+// The pair loop (body.cuh block_aos): each thread owns kTgts = 2 target
+// points (the same point of rows 2q and 2q+1 in K9), which keeps a
+// target's sum and its block partial in registers without spills (4 per
+// thread measured slower, PERF.md). Every block is staged source by
+// source, its kRows values padded to whole float4s, so one or two 16-byte
+// broadcast loads bring a source, and it serves both targets: the 3D
+// bodies' loops issue 1 shared load per pair and vort2d's 0.5, against
+// 3-5 and 2.75 in block() (chip_smoke.py's SASS report). The staging is
+// asynchronous: every thread copies single floats with cp.async
+// (coalesced global reads, the transpose done by the copy) into a ring of
+// kPreStages blocks, so the next blocks arrive while the current one is
+// summed; a body whose staged rows differ rewrites them in place after
+// the copy lands (Body::staged). Three stages and cp.async measured
+// best against two or four stages and against bulk copies into a raw
+// ring transposed after they land (PERF.md). Tensor cores
+// are not used: the pair terms are elementwise fp32 with an rsqrt (or an
+// exp) per pair, no contraction TF32 or bf16 could take at the port's
+// 1e-5 parity. No warp-level code either, so the host emulation
+// (tests/test_torch_csrc_host.py) still checks these kernels.
+//
+// What bounds it: per step G*B*B pairs (twice that in K9) against
+// G*C*B*4 gathered bytes read once, plus the gather pass outside that
+// wrote them, and the partial rows written and read back once; the
+// operations are the larger (PERF.md states both per instantiation).
+// Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
+// row*od8*B output offsets at 1e8 do not.
+
+constexpr int kPreStages = 3;  // blocks in flight per CTA
+
+// Targets per thread (kTgts), rows per run (kRowsT) and target points of
+// a row per thread (kPts) of K8/K9's segment kernel.
 template <class Body, bool kPaired>
-__global__ void exec_pre_runs(const float* __restrict__ tgt_geo,
-                              const float* __restrict__ src_gathered,
-                              float* __restrict__ out,
-                              const int* __restrict__ run_tgt,
-                              const int* __restrict__ run_off,
-                              const int* __restrict__ steps,
-                              const int* __restrict__ n_slots, int B, int C,
-                              int G, int od8, int stage) {
-  extern __shared__ float sm[];  // Body::kRows rows of stage * B floats
-  const int run = blockIdx.x;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool act = i < B;
-  const int64_t row0 =
-      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
-  typename Body::Tgt t0{}, t1{};
-  if (act) {
-    const float* g0 = tgt_geo + row0 * 8 * B + i;
-    t0 = Body::load_tgt(g0, B);
-    if (kPaired) t1 = Body::load_tgt(g0 + 8 * (int64_t)B, B);
-  }
-  float a0[Body::kOut], a1[Body::kOut];
+struct PreTile {
+  static constexpr int kTgts = 2;
+  static constexpr int kRowsT = kPaired ? 2 : 1;
+  static constexpr int kPts = kTgts / kRowsT;
+};
+
+// Starts the asynchronous copy of one gathered block (C rows of B floats
+// at blk, rows 0..kRows-1 used) into its staged layout at st: source q's
+// row r at st[q * aos_floats + r]. Every thread copies its share.
+template <class Body>
+__device__ __forceinline__ void stage_block_async(
+    const float* __restrict__ blk, int B, float* st) {
+  constexpr int kAos = aos_floats<Body>();
 #pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) a0[o] = a1[o] = 0.f;
-  const int p_end = run_off[run + 1];
-  for (int p = run_off[run]; p < p_end; ++p) {
-    sum_gathered<Body, kPaired>(
-        src_gathered + (int64_t)steps[p] * G * C * B,
-        n_slots ? n_slots[p] : G, B, C, stage, sm, act, t0, t1, a0, a1);
-  }
-  if (act) {
-    float* o0 = out + row0 * od8 * B + i;
-#pragma unroll
-    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += a0[o];
-    if (kPaired) {
-      float* o1 = o0 + (int64_t)od8 * B;
-#pragma unroll
-      for (int o = 0; o < Body::kOut; ++o) o1[o * B] += a1[o];
+  for (int r = 0; r < Body::kRows; ++r) {
+    for (int q = threadIdx.x; q < B; q += blockDim.x) {
+      copy4_async(st + q * kAos + r, blk + r * B + q);
     }
   }
 }
 
-template <class Body, bool kPaired>
-int launch_exec_pre(const float* tgt_geo, const float* src_gathered,
-                    float* out, const int* run_tgt, const int* run_off,
-                    const int* steps, const int* n_slots, int n_runs, int B,
-                    int C, int G, int od8, void* stream) {
-  if (n_runs <= 0) return (int)cudaSuccess;
-  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-  const dim3 grid(n_runs, (B + threads - 1) / threads);
-  const int stage = pre_stage<Body>(B, G);
-  const size_t smem = sizeof(float) * stage * Body::kRows * B;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        exec_pre_runs<Body, kPaired>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// The walk over a segment's blocks, slot j of step p (steps in
+// [p, p_end), n_slots[p] or G slots each): next() moves to the next block
+// that exists, skipping steps without a slot.
+struct BlockCursor {
+  int p, j, p_end, G;
+  const int* n_slots;
+  __device__ int slots(int q) const { return n_slots ? n_slots[q] : G; }
+  __device__ void settle() {
+    while (p < p_end && j >= slots(p)) {
+      ++p;
+      j = 0;
+    }
   }
-  exec_pre_runs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      tgt_geo, src_gathered, out, run_tgt, run_off, steps, n_slots, B, C, G,
-      od8, stage);
+  __device__ bool valid() const { return p < p_end; }
+  __device__ void next() {
+    ++j;
+    settle();
+  }
+};
+
+template <class Body, bool kPaired>
+__global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
+                              const float* __restrict__ src_gathered,
+                              float* __restrict__ out,
+                              float* __restrict__ partials,
+                              const int* __restrict__ run_tgt,
+                              const int* __restrict__ run_seg,
+                              const int* __restrict__ seg_run,
+                              const int* __restrict__ seg_off,
+                              const int* __restrict__ steps,
+                              const int* __restrict__ n_slots, int B, int C,
+                              int G, int od8) {
+  using T = PreTile<Body, kPaired>;
+  constexpr int kAos = aos_floats<Body>();
+  extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
+  const int seg = blockIdx.x;
+  const int run = seg_run[seg];
+  const bool whole = run_seg[run + 1] - run_seg[run] == 1;
+  // thread i owns points i + k * nthr (k < kPts) of each of its rows
+  const int nthr = (B + T::kPts - 1) / T::kPts;
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;
+  const int64_t row0 =
+      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
+  typename Body::Tgt t[T::kTgts];
+  float acc[T::kTgts][Body::kOut];
+#pragma unroll
+  for (int n = 0; n < T::kTgts; ++n) {
+    const int pt = i + (n % T::kPts) * nthr;
+    t[n] = typename Body::Tgt{};
+    if (i < nthr && pt < B) {
+      t[n] = Body::load_tgt(
+          tgt_geo + (row0 + n / T::kPts) * 8 * B + pt, B);
+    }
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[n][o] = 0.f;
+  }
+  BlockCursor rd{seg_off[seg], 0, seg_off[seg + 1], G, n_slots};
+  rd.settle();
+  BlockCursor wr = rd;
+  const int64_t step_floats = (int64_t)G * C * B;
+  auto block_at = [&](const BlockCursor& c) {
+    return src_gathered + steps[c.p] * step_floats + (int64_t)c.j * C * B;
+  };
+  // the staged block st: restage rows whose staged value differs, sum it
+  auto consume = [&](float* st) {
+    if (!Body::kRawStage) {
+      for (int q = threadIdx.x; q < B; q += blockDim.x) {
+#pragma unroll
+        for (int r = 0; r < Body::kRows; ++r) {
+          st[q * kAos + r] = Body::staged(r, st[q * kAos + r]);
+        }
+      }
+      __syncthreads();
+    }
+    if (i < nthr) block_aos<Body, T::kTgts>(st, B, t, acc);
+    __syncthreads();  // the block is read
+  };
+  auto issue = [&](int f) {  // block f into stage f % kPreStages
+    if (wr.valid()) {
+      stage_block_async<Body>(block_at(wr), B,
+                              ring + (f % kPreStages) * B * kAos);
+      wr.next();
+    }
+    copy_commit();  // one group per block, empty past the end
+  };
+  for (int f = 0; f < kPreStages - 1; ++f) issue(f);
+  for (int f = 0; rd.valid(); ++f) {  // uniform across the CTA
+    issue(f + kPreStages - 1);  // its stage was read in iteration f - 1
+    copy_wait<kPreStages - 1>();  // block f has landed
+    __syncthreads();
+    consume(ring + (f % kPreStages) * B * kAos);
+    rd.next();
+  }
+  if (i >= nthr) return;
+#pragma unroll
+  for (int n = 0; n < T::kTgts; ++n) {
+    const int pt = i + (n % T::kPts) * nthr;
+    if (pt >= B) continue;
+    const int r = n / T::kPts;
+    if (whole) {
+      float* o0 = out + (row0 + r) * od8 * B + pt;
+#pragma unroll
+      for (int o = 0; o < Body::kOut; ++o) o0[o * B] += acc[n][o];
+    } else {
+      float* p0 =
+          partials + ((int64_t)seg * T::kRowsT + r) * Body::kOut * B + pt;
+#pragma unroll
+      for (int o = 0; o < Body::kOut; ++o) p0[o * B] = acc[n][o];
+    }
+  }
+}
+
+// Threads and dynamic shared memory of a K8/K9 segment launch.
+template <class Body, bool kPaired>
+void seg_config(int B, int* threads, size_t* smem) {
+  const int nthr = (B + PreTile<Body, kPaired>::kPts - 1) /
+                   PreTile<Body, kPaired>::kPts;
+  *threads = nthr < kExecMaxThreads ? nthr : kExecMaxThreads;
+  *smem = sizeof(float) * kPreStages * B * aos_floats<Body>();
+}
+
+template <class Body, bool kPaired>
+int launch_exec_pre_seg(const float* tgt_geo, const float* src_gathered,
+                        float* out, float* partials, const int* run_tgt,
+                        const int* run_seg, const int* seg_run,
+                        const int* seg_off, const int* steps,
+                        const int* n_slots, int n_seg, int B, int C, int G,
+                        int od8, void* stream) {
+  if (n_seg <= 0) return (int)cudaSuccess;
+  int threads;
+  size_t smem;
+  seg_config<Body, kPaired>(B, &threads, &smem);
+  const int nthr = (B + PreTile<Body, kPaired>::kPts - 1) /
+                   PreTile<Body, kPaired>::kPts;
+  const dim3 grid(n_seg, (nthr + threads - 1) / threads);
+  // always: an occupancy query at another B may have set a smaller limit
+  const cudaError_t err = cudaFuncSetAttribute(
+      exec_pre_segs<Body, kPaired>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  exec_pre_segs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,
+      seg_off, steps, n_slots, B, C, G, od8);
+  return (int)cudaGetLastError();
+}
+
+// K8/K9's ordered reduction: one CTA row per run, one thread per value of
+// the run's `rows` partial rows (rows x kOut x B); a run of one segment
+// has nothing to add. Each value is the sum of the run's partials in
+// segment order, then added onto the output row. Bound by bytes: the
+// partials read once, the output rows read and written once.
+template <class Body>
+__global__ void reduce_segs(float* __restrict__ out,
+                            const float* __restrict__ partials,
+                            const int* __restrict__ run_tgt,
+                            const int* __restrict__ run_seg, int rows, int B,
+                            int od8) {
+  const int run = blockIdx.x;
+  const int s0 = run_seg[run], s1 = run_seg[run + 1];
+  const int per = rows * Body::kOut * B;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (s1 - s0 < 2 || e >= per) return;
+  const float* p = partials + (int64_t)s0 * per + e;
+  float v = p[0];
+  int s = 1;
+  for (; s + 4 <= s1 - s0; s += 4) {  // four loads in flight, added in order
+    const float a = p[(int64_t)s * per], b = p[(int64_t)(s + 1) * per];
+    const float c = p[(int64_t)(s + 2) * per], d = p[(int64_t)(s + 3) * per];
+    v += a;
+    v += b;
+    v += c;
+    v += d;
+  }
+  for (; s < s1 - s0; ++s) v += p[(int64_t)s * per];
+  const int r = e / (Body::kOut * B);
+  const int64_t row = (int64_t)run_tgt[run] * rows + r;
+  out[row * od8 * B + (e - r * Body::kOut * B)] += v;
+}
+
+constexpr int kReduceThreads = 256;
+
+template <class Body>
+int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
+                       const int* run_seg, int n_runs, int rows, int B,
+                       int od8, void* stream) {
+  if (n_runs <= 0) return (int)cudaSuccess;
+  const int per = rows * Body::kOut * B;
+  const dim3 grid(n_runs, (per + kReduceThreads - 1) / kReduceThreads);
+  reduce_segs<Body><<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      out, partials, run_tgt, run_seg, rows, B, od8);
   return (int)cudaGetLastError();
 }
 
@@ -540,11 +727,24 @@ int fetch_occupancy(int B, int C, int* info) {
                       smem, n_stages, info);
 }
 
-// occupancy_of K10 (kind 0), K11 (1) or K12 (2) at (B, C, G).
+// occupancy_of a K8 (kPaired false) or K9 segment launch at B.
+template <class Body, bool kPaired>
+int seg_occupancy(int B, int* info) {
+  int threads;
+  size_t smem;
+  seg_config<Body, kPaired>(B, &threads, &smem);
+  return occupancy_of((const void*)exec_pre_segs<Body, kPaired>, threads,
+                      smem, kPreStages, info);
+}
+
+// occupancy_of K10 (kind 0), K11 (1), K12 (2), or the segment kernel of
+// K8 (3) or K9 (4) at (B, C, G).
 template <class Body>
 int occupancy(int kind, int B, int C, int G, int* info) {
   if (kind == 0) return fetch_occupancy<Body, false>(B, C, info);
   if (kind == 1) return fetch_occupancy<Body, true>(B, C, info);
+  if (kind == 3) return seg_occupancy<Body, false>(B, info);
+  if (kind == 4) return seg_occupancy<Body, true>(B, info);
   const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
   const size_t smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
   return occupancy_of((const void*)exec_static_steps<Body>, threads, smem, 0,

@@ -2,7 +2,8 @@
 
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
-`vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12) and direct
+`vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12; K8 and K9
+each a segment kernel and an ordered reduction) and direct
 (K4) templates (`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
 also K13, K10's template on the four ablated grav3d bodies
 (`grav3d_ablate_body.cuh`); nvcc compiles
@@ -40,11 +41,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # core_func values with a CUDA body (core.cuh); grav3d has no core
 CUDA_CORES = ("rm", "exp")
-KINDS = ("exec", "exec_t2", "direct", "exec_pre", "exec_pre_t2", "exec_dma",
-         "exec_dmap", "exec_static")
+# K8 and K9 are each a segment kernel ("exec_pre_seg", "exec_pre_t2_seg")
+# and the ordered reduction they share ("exec_pre_reduce")
+KINDS = ("exec", "exec_t2", "direct", "exec_pre_seg", "exec_pre_t2_seg",
+         "exec_pre_reduce", "exec_dma", "exec_dmap", "exec_static")
 # kinds whose shared memory and residency `occupancy` reports, by the
 # code the C entry point takes
-OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2}
+OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2,
+                   "exec_pre_seg": 3, "exec_pre_t2_seg": 4}
 # K13's modes: entry points onbody_exec_ablate_<mode> and
 # onbody_occupancy_ablate_<mode>, grav3d only
 ABLATE_MODES = ("dma", "d2", "norsqrt", "full")
@@ -58,8 +62,9 @@ _ARGTYPES = {
     "exec": [_P] * 6 + [_I] * 5 + [_P],
     "exec_t2": [_P] * 6 + [_I] * 5 + [_P],
     "direct": [_P] * 3 + [_I] * 2 + [_P],
-    "exec_pre": [_P] * 7 + [_I] * 5 + [_P],
-    "exec_pre_t2": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_pre_seg": [_P] * 10 + [_I] * 5 + [_P],
+    "exec_pre_t2_seg": [_P] * 10 + [_I] * 5 + [_P],
+    "exec_pre_reduce": [_P] * 4 + [_I] * 4 + [_P],
     "exec_dma": [_P] * 6 + [_I] * 5 + [_P],
     "exec_dmap": [_P] * 6 + [_I] * 5 + [_P],
     "exec_static": [_P] * 6 + [_I] * 5 + [_P],
@@ -167,7 +172,8 @@ def lib() -> ctypes.CDLL:
 
 def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
     """Dynamic shared memory per CTA (bytes), resident CTAs per SM and
-    ring stages of a K10/K11/K12 launch at (B, C, G), from the CUDA
+    ring stages of a K10/K11/K12 or K8/K9 segment launch at (B, C, G)
+    (a kind of OCCUPANCY_KINDS), from the CUDA
     occupancy calculator. kind "ablate_<mode>" (inst "grav3d") reports
     K13's launch of that mode."""
     info = (ctypes.c_int * 3)()

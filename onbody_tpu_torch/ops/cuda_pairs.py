@@ -24,11 +24,17 @@ another kernel.
 `fetch` argument: 'pregather' chunks the list, gathers each chunk and
 runs K8/K9; 'dma_i' runs K1/K2, 'dma' K10/K2, 'dma_p' K11/K2; 'static'
 chunks and gathers as 'pregather' and runs K12, and has no paired form.
+
+K8 and K9 cut every run of a chunk into segments of at most S steps
+(`_plan_segments`; S from `seg_steps_for`), launch one CTA per segment
+and, when a run was split, an ordered reduction of its segments' partial
+rows; `exec_pairs_pre_split_torch` is the plain twin of that split.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -39,19 +45,21 @@ from onbody_tpu_torch.ops.kernels import (FM_ROWS, KERNELS, Kernel,
 
 GROUP = 8
 # kernel launches by the wrappers, keyed (kind, instance) with kind one of
-# cuda_lib.KINDS' executors ("exec", "exec_t2", "exec_pre", "exec_pre_t2",
-# "exec_dma", "exec_dmap", "exec_static") or K13's "exec_ablate_<mode>",
-# and the instance as cuda_lib.instance names it (reset by callers that
-# count a run)
+# cuda_lib.KINDS' executors ("exec", "exec_t2", "exec_pre_seg",
+# "exec_pre_t2_seg", "exec_pre_reduce", "exec_dma", "exec_dmap",
+# "exec_static") or K13's "exec_ablate_<mode>", and the instance as
+# cuda_lib.instance names it (reset by callers that count a run)
 LAUNCHES = collections.Counter()
 # elements per (steps, B, B) twin temporary: bounds its chunk of steps
 _TWIN_ELEMS = 1 << 22
 # bytes of the gathered source buffer per pregather chunk (reference
-# pallas_pairs.py:894-897), sized at the row count padded to 8. One CTA
-# owns one run, so a chunk of long runs is a short grid: on an NVIDIA
-# H100 80GB HBM3 (700 W) the API's vortgrad3d treecode3 at N = 1e6 spent
-# 0.593 s in the executor at this size and 0.153 s with one launch
-# (chip_smoke.py --chunk-sweep; PERF.md)
+# pallas_pairs.py:894-897), sized at the row count padded to 8. K8/K9
+# split a chunk's runs to fill the card, so the size no longer sets the
+# grid: on an NVIDIA H100 80GB HBM3 (700.00 W) the API's vortgrad3d
+# treecode3 list at N = 1e6 spent 0.1811 / 0.1571 / 0.1596 / 0.1690 /
+# 0.1484 s in the executor at 64 / 256 / 1024 / 8192 / 32768 MiB
+# (chip_smoke.py --chunk-sweep; PERF.md): 256 MiB is within 6% of the
+# best size for a small share of its memory
 PREGATHER_BYTES = 256 << 20
 
 
@@ -88,11 +96,11 @@ def _finish(kernel: Kernel, out_fm, final: bool):
 # ---------------------------------------------------------------- twins
 
 def _twin_add(kernel: Kernel, tgt_geo, out_fm, rows, src_block, group: int,
-              core: str):
-    """out_fm[rows[i]] += sum_j tile(target block rows[i], src_block(sel,
+              core: str, keys=None):
+    """out_fm[keys[i]] += sum_j tile(target block rows[i], src_block(sel,
     j)) over the group slots j, in chunks of steps; src_block(sel, j)
     gives the (len(sel), C, B) source blocks of slot j for the steps
-    sel (a slice of rows)."""
+    sel (a slice of rows); keys default to rows."""
     b = tgt_geo.shape[2]
     pd = kernel.pd
     step = max(1, _TWIN_ELEMS // (b * b))
@@ -108,7 +116,7 @@ def _twin_add(kernel: Kernel, tgt_geo, out_fm, rows, src_block, group: int,
             acc = tj if acc is None else acc + tj
         add = out_fm.new_zeros((t_c.shape[0],) + out_fm.shape[1:])
         add[:, :kernel.od] = acc.transpose(1, 2)
-        out_fm.index_add_(0, t_c, add)
+        out_fm.index_add_(0, t_c if keys is None else keys[sel], add)
 
 
 def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
@@ -184,6 +192,69 @@ def exec_pairs_pre_torch_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
 exec_pairs_static_torch = exec_pairs_pre_torch
 
 
+def reduce_segments_torch(out_fm, partials, run_tgt, run_seg,
+                          paired: bool = False):
+    """Plain twin of K8/K9's ordered reduction: for every run of more
+    than one segment, its partial rows partials[run_seg[r]:run_seg[r+1]]
+    (n_seg, rows, OD, B), rows 2 when paired, summed in segment order
+    and added onto its output rows (target key t: row t; parent key q:
+    rows 2q and 2q+1). Returns out_fm."""
+    first, nseg = run_seg[:-1].long(), (run_seg[1:] - run_seg[:-1]).long()
+    split = torch.nonzero(nseg > 1).squeeze(1)
+    if split.numel() == 0:
+        return out_fm
+    first, nseg = first[split], nseg[split]
+    red = partials[first]
+    for k in range(1, int(nseg.max())):
+        more = torch.nonzero(nseg > k).squeeze(1)
+        red[more] += partials[first[more] + k]
+    rows = red.shape[1]
+    keys = run_tgt.long()[split]
+    idx = (keys[:, None] * rows + torch.arange(rows, device=keys.device))
+    out_fm[:, :red.shape[2]].index_add_(0, idx.reshape(-1),
+                                         red.reshape((-1,) + red.shape[2:]))
+    return out_fm
+
+
+def exec_pairs_pre_split_torch(kernel: Kernel, tgt_geo, src_gathered,
+                               group_t, out_fm, seg_steps, core: str = "rm",
+                               group: int = GROUP, paired: bool = False):
+    """Plain twin of K8 (K9 when paired, parent-keyed steps) as the
+    kernels split it: the chunk's runs cut into segments of at most
+    seg_steps steps (_plan_segments; None: one per run); a run of one
+    segment is added onto its rows, every segment of a split run summed
+    into its own partial rows, then reduce_segments_torch. The sums of
+    exec_pairs_pre_torch(_t2) up to the order of the fp32 additions.
+    Returns out_fm."""
+    c = src_gathered.shape[1] // group
+    steps, run_tgt, run_off = _run_table(group_t)
+    seg_run, seg_off, run_seg = _plan_segments(run_off, seg_steps)
+    n_seg = seg_run.shape[0]
+    if n_seg == 0:
+        return out_fm
+    rows = 2 if paired else 1
+    seg_of = torch.repeat_interleave(
+        torch.arange(n_seg, device=steps.device),
+        (seg_off[1:] - seg_off[:-1]).long())
+    key = run_tgt.long()[seg_run.long()][seg_of]
+    tgt = torch.cat([rows * key + r for r in range(rows)])
+    part_keys = torch.cat([rows * seg_of + r for r in range(rows)])
+    st = torch.cat([steps] * rows)
+    partials = out_fm.new_zeros((n_seg * rows,) + out_fm.shape[1:])
+    _twin_add(kernel, tgt_geo, partials, tgt,
+              lambda sel, j: src_gathered[st[sel], j * c:(j + 1) * c],
+              group, core, keys=part_keys)
+    partials = partials.view((n_seg, rows) + out_fm.shape[1:])
+    whole = (run_seg[1:] - run_seg[:-1]) == 1
+    one = torch.nonzero(whole).squeeze(1)
+    idx = (run_tgt.long()[one][:, None] * rows
+           + torch.arange(rows, device=one.device)).reshape(-1)
+    out_fm.index_add_(0, idx, partials[run_seg.long()[one]].reshape(
+        (-1,) + out_fm.shape[1:]))
+    return reduce_segments_torch(out_fm, partials[:, :, :kernel.od],
+                                 run_tgt, run_seg, paired)
+
+
 # --------------------------------------------------------------- kernels
 
 def _run_table(group_t):
@@ -214,6 +285,65 @@ def _runs(group_t, group_s):
     (runs are contiguous in it, see _run_table)."""
     idx, run_tgt, run_off = _run_table(group_t)
     return run_tgt, run_off, group_s[idx].to(torch.int32).contiguous()
+
+
+def _plan_segments(run_off, seg_steps):
+    """K8/K9's split planner: every run of a run table (_run_table) cut
+    into segments of at most seg_steps consecutive steps, in order
+    (seg_steps None: one segment per run). Returns (seg_run, seg_off,
+    run_seg) as contiguous int32 on run_off's device: each segment's
+    run, the segments' bounds in `steps` (segment s at [seg_off[s],
+    seg_off[s+1]), inside one run) and each run's segments (run r at
+    [run_seg[r], run_seg[r+1]); a run of at most seg_steps steps is one
+    segment). Vectorized: no host loop over runs."""
+    off = run_off.long()
+    lens = off[1:] - off[:-1]
+    if seg_steps is None:
+        nseg, width = torch.ones_like(lens), 0
+    elif seg_steps < 1:
+        raise ValueError(f"segments of {seg_steps} steps: need >= 1")
+    else:
+        nseg, width = (lens + seg_steps - 1) // seg_steps, seg_steps
+    run_seg = torch.cat([nseg.new_zeros(1), torch.cumsum(nseg, 0)])
+    n = int(run_seg[-1])
+    # each segment's run: a step up at every run's first segment, summed
+    # (repeat_interleave's CPU kernel wakes every intra-op thread, which
+    # on a busy host cost the wrapper's plan up to tens of ms)
+    seg_run = torch.zeros(n, dtype=torch.long, device=off.device)
+    seg_run[run_seg[1:-1]] = 1
+    seg_run = torch.cumsum(seg_run, 0)
+    rank = torch.arange(n, device=off.device) - run_seg[seg_run]
+    seg_off = torch.cat([off[seg_run] + rank * width, off[-1:]])
+    return tuple(t.to(torch.int32).contiguous()
+                 for t in (seg_run, seg_off, run_seg))
+
+
+# waves of resident CTAs a pregather chunk's segments should fill
+SEG_WAVES = 2
+
+
+@functools.cache
+def _resident_ctas(kind: str, inst: str, b: int, c: int, g: int,
+                   device_index: int):
+    with torch.cuda.device(device_index):
+        ctas = cuda_lib.occupancy(kind, inst, b, c, g)["ctas_per_sm"]
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return ctas, sms
+
+
+def seg_steps_for(kind: str, inst: str, n_steps: int, b: int, c: int,
+                  g: int, device) -> int:
+    """S, the most steps a segment of K8/K9 ("exec_pre_seg" /
+    "exec_pre_t2_seg") takes in a chunk of n_steps real steps: the
+    largest S whose segments still fill SEG_WAVES waves of the segment
+    kernel's resident CTAs on the card's SMs (the CUDA occupancy
+    calculator's CTAs per SM), at least 1. A chunk has at least n_steps /
+    S segments however its runs fall, so a list of long runs (a treecode
+    leaf's 27-77 steps) fills the card; runs no longer than S stay
+    whole."""
+    ctas, sms = _resident_ctas(kind, inst, b, c, g, device.index or 0)
+    return max(1, n_steps // (SEG_WAVES * sms * max(ctas, 1)))
 
 
 def _check_layout(kernel: Kernel, tgt_geo, out_fm, c: int, paired: bool,
@@ -307,15 +437,25 @@ def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
 
 
 def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
-                out_fm, group: int, n_slots) -> bool:
-    """Run one launch on a gathered chunk (K8 "exec_pre", K9
-    "exec_pre_t2", K12 "exec_static"); False when the chunk has no real
-    step. n_slots (P,) or None: slots of each step to evaluate (the rest
-    hold the inert row, which adds exactly zero). K12 writes one row per
+                out_fm, group: int, n_slots, seg_steps=None,
+                gt_host=None) -> bool:
+    """Run one gathered chunk (K8 "exec_pre", K9 "exec_pre_t2", K12
+    "exec_static"); False when the chunk has no real step. n_slots (P,)
+    or None: slots of each step to evaluate (the rest hold the inert
+    row, which adds exactly zero). K8/K9: the runs cut into segments of
+    at most seg_steps steps (None: seg_steps_for's choice), the segment
+    kernel, then, when a run was split, the ordered reduction of the
+    partial rows (a scratch allocated here, one or two rows per
+    segment). K8/K9 make the run and segment tables on the host, from
+    gt_host (group_t's copy there; copied here when None), and send them
+    to the card in one asynchronous copy: a chunk waits on the card at
+    most for that one copy of its keys, and not at all when the caller
+    copied the whole list once (the front door). K12 writes one row per
     real step, which one index_add_ then adds into out_fm."""
     paired = kind == "exec_pre_t2"
     inst = cuda_lib.instance(kernel.name, core)
-    name = cuda_lib.entry(kind, inst)
+    launched = kind if kind == "exec_static" else kind + "_seg"
+    name = cuda_lib.entry(launched, inst)
     _one_cuda_device(name, tgt_geo, src_gathered, group_t, out_fm, n_slots)
     p, gc, b = src_gathered.shape
     if gc % group or group_t.shape[0] != p or b != tgt_geo.shape[2]:
@@ -326,36 +466,132 @@ def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
                   src_gathered=src_gathered)
     if max(tgt_geo.shape[0], p) >= 2 ** 31:
         raise ValueError("pair executor: sizes must fit in int32")
-    steps, run_tgt, run_off = _run_table(group_t)
+    if kind != "exec_static" and gt_host is None:
+        gt_host = group_t.cpu()
+    steps, run_tgt, run_off = _run_table(
+        group_t if kind == "exec_static" else gt_host)
     if run_tgt.numel() == 0:
         return False
     _check_targets(name, run_tgt, tgt_geo.shape[0] // (2 if paired else 1))
+    c = gc // group
+    if kind != "exec_static":
+        if seg_steps is None:
+            seg_steps = seg_steps_for(launched, inst, steps.numel(), b, c,
+                                      group, out_fm.device)
+        plan = _seg_plan(launched, kernel, core, steps, run_tgt, run_off,
+                         n_slots, seg_steps, out_fm.device)
+        partials = launch_segments(plan, tgt_geo, src_gathered, out_fm,
+                                   group)
+        if partials is not None:
+            reduce_segments_cuda(kernel, core, out_fm, partials,
+                                 plan.run_tgt, plan.run_seg)
+        return True
     slots = None
     if n_slots is not None:
         slots = n_slots[steps].to(torch.int32).contiguous()
     steps32 = steps.to(torch.int32).contiguous()
-    slot_ptr = None if slots is None else slots.data_ptr()
-    fn = getattr(cuda_lib.lib(), name)
-    stream = cuda_lib.stream_ptr(out_fm.device)
-    c = gc // group
-    if kind == "exec_static":
-        # one row per real step, keyed by the step's target row
-        rows_t = group_t[steps]
-        keys = rows_t.to(torch.int32).contiguous()
-        rows = out_fm.new_empty((steps.numel(),) + out_fm.shape[1:])
-        rc = fn(tgt_geo.data_ptr(), src_gathered.data_ptr(), rows.data_ptr(),
-                keys.data_ptr(), steps32.data_ptr(), slot_ptr, steps.numel(),
-                b, c, group, out_fm.shape[1], stream)
-    else:
-        rc = fn(tgt_geo.data_ptr(), src_gathered.data_ptr(),
-                out_fm.data_ptr(), run_tgt.data_ptr(), run_off.data_ptr(),
-                steps32.data_ptr(), slot_ptr, run_tgt.numel(), b, c, group,
-                out_fm.shape[1], stream)
+    # K12: one row per real step, keyed by the step's target row
+    rows_t = group_t[steps]
+    keys = rows_t.to(torch.int32).contiguous()
+    rows = out_fm.new_empty((steps.numel(),) + out_fm.shape[1:])
+    rc = getattr(cuda_lib.lib(), name)(
+        tgt_geo.data_ptr(), src_gathered.data_ptr(), rows.data_ptr(),
+        keys.data_ptr(), steps32.data_ptr(),
+        None if slots is None else slots.data_ptr(), steps.numel(), b, c,
+        group, out_fm.shape[1], cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
     LAUNCHES[(kind, inst)] += 1
-    if kind == "exec_static":
-        out_fm.index_add_(0, rows_t, rows)
+    out_fm.index_add_(0, rows_t, rows)
     return True
+
+
+class SegPlan(collections.namedtuple("SegPlan", (
+        "kernel", "core", "kind", "steps", "n_slots", "run_tgt", "seg_run",
+        "seg_off", "run_seg"))):
+    """One gathered chunk's K8/K9 launch: the kernel, core and segment
+    kind ("exec_pre_seg" or "exec_pre_t2_seg"), the real steps and their
+    slot counts (or None), and the run and segment tables of
+    _run_table / _plan_segments, all int32 on the card."""
+
+
+def _seg_plan(kind, kernel, core, steps, run_tgt, run_off, n_slots,
+              seg_steps, device) -> SegPlan:
+    """SegPlan of a run table on `device`; a table made elsewhere (the
+    host) goes there in one asynchronous copy from pinned memory."""
+    tables = [steps.to(torch.int32), run_tgt,
+              *_plan_segments(run_off, seg_steps)]
+    if steps.device != device:
+        flat = torch.cat(tables).pin_memory().to(device, non_blocking=True)
+        tables = list(torch.split(flat, [t.numel() for t in tables]))
+    slots = None
+    if n_slots is not None:
+        slots = n_slots[tables[0]].to(torch.int32).contiguous()
+    return SegPlan(kernel, core, kind, tables[0], slots, *tables[1:])
+
+
+def plan_chunk(kind: str, kernel: Kernel, core: str, group_t, n_slots,
+               seg_steps: int) -> SegPlan:
+    """The K8 ("exec_pre_seg") or K9 ("exec_pre_t2_seg") plan of one
+    gathered chunk's keys group_t at seg_steps steps per segment, on
+    group_t's device, as the wrapper makes it (no checks): for timing
+    the kernels apart from the planning (launch_segments)."""
+    steps, run_tgt, run_off = _run_table(group_t.cpu())
+    return _seg_plan(kind, kernel, core, steps, run_tgt, run_off, n_slots,
+                     seg_steps, group_t.device)
+
+
+def launch_segments(plan: SegPlan, tgt_geo, src_gathered, out_fm,
+                    group: int):
+    """Launch a planned chunk's segment kernel: runs of one segment are
+    added onto out_fm; returns the partial rows of the split runs'
+    segments (a scratch allocated here, (n_seg, 1 or 2 rows, OD, B)) for
+    reduce_segments_cuda, or None when no run was split."""
+    inst = cuda_lib.instance(plan.kernel.name, plan.core)
+    name = cuda_lib.entry(plan.kind, inst)
+    _, gc, b = src_gathered.shape
+    n_seg, n_runs = plan.seg_run.numel(), plan.run_tgt.numel()
+    partials = None
+    if n_seg > n_runs:
+        partials = out_fm.new_empty((n_seg, 2 if "t2" in plan.kind else 1,
+                                     plan.kernel.od, b))
+    rc = getattr(cuda_lib.lib(), name)(
+        tgt_geo.data_ptr(), src_gathered.data_ptr(), out_fm.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        plan.run_tgt.data_ptr(), plan.run_seg.data_ptr(),
+        plan.seg_run.data_ptr(), plan.seg_off.data_ptr(),
+        plan.steps.data_ptr(),
+        None if plan.n_slots is None else plan.n_slots.data_ptr(), n_seg, b,
+        gc // group, group, out_fm.shape[1],
+        cuda_lib.stream_ptr(out_fm.device))
+    cuda_lib.check(rc, name)
+    LAUNCHES[(plan.kind, inst)] += 1
+    return partials
+
+
+def reduce_segments_cuda(kernel: Kernel, core: str, out_fm, partials,
+                         run_tgt, run_seg):
+    """K8/K9's ordered reduction on CUDA tensors: partials (n_seg, rows,
+    OD, B) of the segments (run r's at [run_seg[r], run_seg[r+1])), rows
+    2 for parent keys, summed in segment order onto the output rows of
+    every run of more than one segment. run_tgt and run_seg contiguous
+    int32. Twin: reduce_segments_torch. Returns out_fm."""
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry("exec_pre_reduce", inst)
+    _one_cuda_device(name, out_fm, partials, run_tgt, run_seg)
+    n_seg, rows, od, b = partials.shape
+    if (od != kernel.od or b != out_fm.shape[2] or rows not in (1, 2)
+            or not partials.is_contiguous()
+            or partials.dtype != torch.float32
+            or run_seg.shape[0] != run_tgt.shape[0] + 1):
+        raise ValueError(f"{name}: partials {tuple(partials.shape)} and "
+                         f"the run table do not match")
+    rc = getattr(cuda_lib.lib(), name)(
+        out_fm.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
+        run_seg.data_ptr(), run_tgt.numel(), rows, b, out_fm.shape[1],
+        cuda_lib.stream_ptr(out_fm.device))
+    cuda_lib.check(rc, name)
+    LAUNCHES[("exec_pre_reduce", inst)] += 1
+    return out_fm
 
 
 def exec_pairs_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
@@ -458,49 +694,60 @@ def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
 
 def exec_pairs_pre_cuda(kernel: Kernel, tgt_geo, src_gathered, group_t,
                         out_fm=None, final: bool = True, core: str = "rm",
-                        group: int = GROUP, n_slots=None):
+                        group: int = GROUP, n_slots=None, seg_steps=None,
+                        gt_host=None):
     """Unpaired executor on pre-gathered sources: src_gathered (P, G*C, B)
     holds step p's G source blocks contiguous, C rows each. CUDA tensors
     launch K8, CPU tensors take exec_pairs_pre_torch. Adds into out_fm
     (zeros when None) and returns it, or with final=True the point-major
-    (NN_t, B, OD) view.
+    (NN_t, B, OD) view. CUDA only: seg_steps, the most steps of a
+    segment (None for seg_steps_for's choice); gt_host, group_t's copy
+    on the host, which the segment plan is made from (None: copied
+    here, one wait on the card).
 
     K8 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre with
-    _body_pre. One CTA per run of a target row, sums in registers, one
-    write per run, like K1; what differs is the fetch: a CTA reads its
-    steps' blocks at src_gathered + step*G*C*B, contiguous and coalesced,
-    with no source-id load in front (csrc/pairs.cuh). The kernel reads a
-    body's lean rows at row stride C, so it takes the lean layout (C 5 for
-    grav3d, 4 for vort2d) and the layout padded to 8 alike; the derived
-    rows the reference's gather appends are for its tile bodies, which
-    switch path on the row count. Its bound is the larger of the pairs'
-    operations and the gathered bytes (PERF.md)."""
+    _body_pre. Every run of a target row is cut into segments of at most
+    seg_steps steps; one CTA per segment reads its steps' blocks at
+    src_gathered + step*G*C*B, contiguous and with no source-id load in
+    front, copies them asynchronously into a ring of shared-memory
+    stages and sums them in registers, several targets per thread. A run
+    of one segment is added onto its row; the segments of a split run
+    write partial rows that the ordered reduction adds onto the row in
+    segment order, so the result never depends on the schedule
+    (csrc/pairs.cuh). The kernel reads a body's lean rows inside a block
+    of C rows, so it takes the lean layout (C 5 for grav3d, 4 for
+    vort2d) and the layout padded to 8 alike; the derived rows the
+    reference's gather appends are for its tile bodies, which switch
+    path on the row count. Its bound is the larger of the pairs'
+    operations and the gathered and partial bytes (PERF.md)."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_pre_torch(kernel, tgt_geo, src_gathered, group_t,
                                     out_fm, final, core, group)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
     _launch_pre("exec_pre", kernel, core, tgt_geo, src_gathered, group_t,
-                out_fm, group, n_slots)
+                out_fm, group, n_slots, seg_steps, gt_host)
     return _finish(kernel, out_fm, final)
 
 
 def exec_pairs_pre_cuda_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
                            out_fm, core: str = "rm", group: int = GROUP,
-                           n_slots=None):
+                           n_slots=None, seg_steps=None, gt_host=None):
     """Sibling-paired executor on pre-gathered sources, parent-keyed
     steps. CUDA tensors launch K9, CPU tensors take
     exec_pairs_pre_torch_t2. Adds into out_fm and returns it; rows 0 and
-    1 are never written.
+    1 are never written. seg_steps and gt_host as for
+    exec_pairs_pre_cuda.
 
     K9 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre_t2 with
-    _body_pre_t2: K8's design, each staged block serving both sibling
-    rows, so one gathered block per step does the work of two."""
+    _body_pre_t2: K8's segments and reduction, each staged block serving
+    both sibling rows, so one gathered block per step does the work of
+    two."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_pre_torch_t2(kernel, tgt_geo, src_gathered,
                                        group_t, out_fm, core, group)
     _launch_pre("exec_pre_t2", kernel, core, tgt_geo, src_gathered, group_t,
-                out_fm, group, n_slots)
+                out_fm, group, n_slots, seg_steps, gt_host)
     return out_fm
 
 
@@ -581,12 +828,14 @@ def _check_fetch(fetch: str):
 def _exec_pregather(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
                     out_fm, core: str, twin: bool):
     """Chunked execution on gathered sources into out_fm: per chunk of
-    steps one row gather into a buffer allocated once, then one launch of
-    `kind` (K8 "exec_pre", K9 "exec_pre_t2", K12 "exec_static") or its
-    twin. Chunks are separate launches in stream order on one
-    accumulator, so a run cut by a chunk boundary resumes from its
-    partial sum (reference pallas_pairs.py:31-36); K12's rows are added
-    per chunk, never all at once."""
+    steps one row gather into a buffer allocated once, then `kind` (K8
+    "exec_pre" or K9 "exec_pre_t2": the segment kernel and, when a run
+    was split, the reduction; K12 "exec_static") or its twin. Chunks are
+    separate launches in stream order on one accumulator, so a run cut
+    by a chunk boundary resumes from its partial sum (reference
+    pallas_pairs.py:31-36); K12's rows are added per chunk, never all at
+    once. K8/K9 plan every chunk from one host copy of group_t, so no
+    chunk waits on the card before it is queued."""
     p, g = group_s.shape
     b = tgt_geo.shape[2]
     chunk = pregather_chunk(g, src_fm.shape[1], b)
@@ -596,12 +845,17 @@ def _exec_pregather(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
         run = exec_pairs_pre_torch_t2 if twin else exec_pairs_pre_cuda_t2
     else:
         run = exec_pairs_pre_torch if twin else exec_pairs_pre_cuda
+    # K8/K9 plan every chunk from one host copy of the list
+    host = (None if twin or kind == "exec_static"
+            or tgt_geo.device.type != "cuda" else group_t.cpu())
     buf = src_fm.new_empty((min(p, chunk) * g,) + src_fm.shape[1:])
     for i in range(0, p, chunk):
         gt_c, gs_c = group_t[i:i + chunk], group_s[i:i + chunk]
         src_c = _pregather(kernel.name, src_fm, gs_c, b, pad8=False,
                            out=buf)
         kw = {} if twin else dict(n_slots=n_real_slots(gs_c))
+        if host is not None:
+            kw["gt_host"] = host[i:i + chunk]
         if kind != "exec_pre_t2":
             kw["final"] = False
         run(kernel, tgt_geo, src_c, gt_c, out_fm, core=core, group=g, **kw)

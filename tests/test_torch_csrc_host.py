@@ -10,13 +10,14 @@ and body arithmetic (rsqrtf as 1/sqrtf) without a GPU; the card itself
 is tested in test_torch_cuda.py. Skips where there is no g++.
 
 K10 and K11 fetch their blocks with bulk asynchronous copies and
-mbarriers, inline PTX that g++ cannot build; all of it lives in
-csrc/async_copy.cuh, and this test swaps that one header for a
-synchronous host version (HOST_ASYNC: the copy is a memcpy that
-completes its barrier's phase at once, the wait checks that the phase
-it waits for has completed). So for K10/K11 the emulation checks the
-indexing, the slot walk, the ring's stage and phase bookkeeping and the
-order of the sums, not asynchrony.
+mbarriers, and K8/K9's segment kernel with cp.async, inline PTX that g++
+cannot build; all of it lives in csrc/async_copy.cuh, and this test
+swaps that one header for a synchronous host version (HOST_ASYNC: the
+bulk copy is a memcpy that completes its barrier's phase at once, the
+wait checks that the phase it waits for has completed; a cp.async is a
+plain store). So for K8-K11 the emulation checks the indexing, the slot
+walk, the ring's stage and phase bookkeeping and the order of the sums,
+not asynchrony.
 
 Limits: there is no concurrency inside a block, so nothing here tests
 the barriers, shared-memory races, the copies' asynchrony or any
@@ -63,6 +64,9 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
+struct float4 {
+  float x, y, z, w;
+};
 static float host_dyn_smem[1 << 16];
 inline void __syncthreads() {}
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -125,6 +129,9 @@ inline void bulk_copy(float* dst, const float* src, uint32_t bytes,
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   if ((*bar & 1u) == parity) abort();
 }
+inline void copy4_async(float* dst, const float* src) { *dst = *src; }
+inline void copy_commit() {}
+template <int kPending> inline void copy_wait() {}
 }  // namespace onbody
 """
 # K11's planner, exported for the test
@@ -265,16 +272,32 @@ def test_host_k4_matches_twin(host_lib, name, core):
 
 
 def _run_pre(lib, kind, kernel, core, tgt_geo, src_gathered, gt, out,
-             group, n_slots=None):
+             group, n_slots=None, seg_steps=None):
+    """K8 (kind "exec_pre") or K9 ("exec_pre_t2") on one gathered chunk as
+    the wrapper runs them: the runs cut into segments of at most
+    seg_steps steps (None: one per run), the segment kernel, then the
+    ordered reduction when a run was split. Partial rows start as NaN,
+    so a value the kernels should have written and did not shows."""
     steps, run_tgt, run_off = cuda_pairs._run_table(gt)
+    seg_run, seg_off, run_seg = cuda_pairs._plan_segments(run_off,
+                                                          seg_steps)
     slots = None if n_slots is None else n_slots[steps].int().contiguous()
     steps = steps.int().contiguous()
     _, gc, b = src_gathered.shape
-    return _entry(lib, kind, kernel.name, core)(
+    rows = 2 if kind == "exec_pre_t2" else 1
+    partials = torch.full((max(seg_run.numel(), 1), rows, kernel.od, b),
+                          float("nan"))
+    rc = _entry(lib, kind + "_seg", kernel.name, core)(
         tgt_geo.data_ptr(), src_gathered.data_ptr(), out.data_ptr(),
-        run_tgt.data_ptr(), run_off.data_ptr(), steps.data_ptr(),
-        None if slots is None else slots.data_ptr(), run_tgt.numel(), b,
+        partials.data_ptr(), run_tgt.data_ptr(), run_seg.data_ptr(),
+        seg_run.data_ptr(), seg_off.data_ptr(), steps.data_ptr(),
+        None if slots is None else slots.data_ptr(), seg_run.numel(), b,
         gc // group, group, out.shape[1], None)
+    if rc or seg_run.numel() == run_tgt.numel():
+        return rc
+    return _entry(lib, "exec_pre_reduce", kernel.name, core)(
+        out.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
+        run_seg.data_ptr(), run_tgt.numel(), rows, b, out.shape[1], None)
 
 
 @pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
@@ -345,6 +368,60 @@ def test_host_k9_matches_twin_and_keeps_root(host_lib, name, core):
     assert torch.equal(out[4:], k2[4:])         # parents 2, 3, 5, 7
     rms, mx = _errors(out[2:4], k2[2:4])
     assert rms <= REL_RMS and mx <= MAX_REL
+
+
+# runs of 1 to 6 steps with pads between and after them: target keys for
+# K8, parent keys (< 8 of the 16 rows) for K9
+SPLIT_LISTS = {"exec_pre": [4, 4, 4, 4, 4, 4, 0, 2, 2, 2, 7, 0, 9, 9, 9, 9,
+                            9, 0, 0],
+               "exec_pre_t2": [3, 3, 3, 3, 3, 0, 1, 1, 2, 2, 2, 2, 0, 5, 7,
+                               7, 7, 0]}
+
+
+@pytest.mark.parametrize("seg_steps", [1, 2, 3])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k8_k9_split_match_twins(host_lib, name, core, seg_steps):
+    """K8 and K9 with the runs forced into segments of 1, 2 or 3 steps, in
+    two launches cut inside a run, lean rows and the slot counts: the
+    segment kernel's partial rows and the ordered reduction give the
+    unsplit twin's sums within the kernel limits and the split twin's,
+    rows without a run and K9's rows 0/1 untouched."""
+    kernel = get_kernel(name)
+    b, group = 32, 8
+    src_fm, tgt_geo = _blocks(kernel, seed=20)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    for kind, gt_list in SPLIT_LISTS.items():
+        paired = kind == "exec_pre_t2"
+        gt, gs = _groups(gt_list, seed=21)
+        gathered = cuda_pairs._pregather(name, lean, gs, b, pad8=False)
+        slots = cuda_pairs.n_real_slots(gs)
+        out = torch.zeros((16, cuda_pairs.od8(kernel), b))
+        out[1] = 7.25
+        twin, split = out.clone(), out.clone()
+        for lo, hi in ((0, 3), (3, len(gt_list))):    # a run is cut
+            assert _run_pre(host_lib, kind, kernel, core, tgt_geo,
+                            gathered[lo:hi].contiguous(), gt[lo:hi], out,
+                            group, slots[lo:hi], seg_steps) == 0
+            cuda_pairs.exec_pairs_pre_split_torch(
+                kernel, tgt_geo, gathered[lo:hi], gt[lo:hi], split,
+                seg_steps, core=core, group=group, paired=paired)
+        if paired:
+            cuda_pairs.exec_pairs_pre_torch_t2(kernel, tgt_geo, gathered, gt,
+                                               twin, core=core, group=group)
+        else:
+            cuda_pairs.exec_pairs_pre_torch(kernel, tgt_geo, gathered, gt,
+                                            twin, final=False, core=core,
+                                            group=group)
+        assert torch.isfinite(out).all()
+        for ref in (twin, split):
+            rms, mx = _errors(out[2:], ref[2:])
+            assert rms <= REL_RMS and mx <= MAX_REL, kind
+        assert (out[1] == 7.25).all() and not out[0].any()
+        keys = {k for k in gt_list if k}
+        rows = ({r for k in keys for r in (2 * k, 2 * k + 1)} if paired
+                else keys)
+        untouched = torch.tensor([r for r in range(2, 16) if r not in rows])
+        assert not out[untouched].any()
 
 
 def test_host_library_exports_every_entry(host_lib):

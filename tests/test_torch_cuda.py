@@ -11,6 +11,8 @@ reference package's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -115,13 +117,15 @@ def test_k2_matches_twin_and_keeps_root(dev, name, core):
 def test_k8_matches_twin_and_k1(dev, name, core, pad8):
     """K8 on lean rows and rows padded to 8, through the chunked front
     door with the list cut inside a run: its twin's result within the
-    kernel limit, K1's on the same groups."""
+    kernel limit, K1's on the same groups (bit for bit where a run is one
+    segment: the one-step runs here, whose order of sums is K1's, and
+    every run when nothing is split)."""
     kernel = get_kernel(name)
     src_fm, tgt_geo = _blocks(dev, kernel)
     if not pad8:
         src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
     gt, gs = _groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0])
-    key = ("exec_pre", cuda_lib.instance(name, core))
+    key = ("exec_pre_seg", cuda_lib.instance(name, core))
     before = cuda_pairs.LAUNCHES[key]
     one = cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core=core,
                                 fetch="pregather")
@@ -136,11 +140,17 @@ def test_k8_matches_twin_and_k1(dev, name, core, pad8):
         cuda_pairs.exec_pairs_pre_cuda(kernel, tgt_geo, gathered[lo:hi],
                                        gt[lo:hi], two, final=False,
                                        core=core)
+    whole = cuda_pairs.exec_pairs_pre_cuda(
+        kernel, tgt_geo, gathered, gt, final=False, core=core,
+        n_slots=cuda_pairs.n_real_slots(gs), seg_steps=1 << 30)
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES[key] == before + 3
+    assert cuda_pairs.LAUNCHES[key] == before + 4
     assert torch.isfinite(one).all()
     assert scale_rel_max(one[1:].cpu(), twin[1:].cpu()) < 1e-4
-    assert torch.equal(one, k1)
+    assert scale_rel_max(one[1:].cpu(), k1[1:].cpu()) < 1e-4
+    single = torch.tensor([5, 9], device=dev)
+    assert torch.equal(one[single], k1[single])
+    assert torch.equal(whole[:, :kernel.od].transpose(1, 2), k1)
     two = two[:, :kernel.od].transpose(1, 2)
     assert scale_rel_max(two[1:].cpu(), twin[1:].cpu()) < 1e-4
     assert not one[torch.tensor([0, 2, 4, 6, 7, 8], device=dev)].any()
@@ -154,8 +164,8 @@ def test_k9_matches_twin_and_keeps_root(dev, name, core):
     gt, gs = _groups(dev, [1, 1, 2, 3, 5, 0, 7, 0])
     out = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
     out[1] = 7.25
-    twin, k2 = out.clone(), out.clone()
-    key = ("exec_pre_t2", cuda_lib.instance(name, core))
+    twin, k2, whole = out.clone(), out.clone(), out.clone()
+    key = ("exec_pre_t2_seg", cuda_lib.instance(name, core))
     before = cuda_pairs.LAUNCHES[key]
     cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, out, core=core,
                              fetch="pregather")
@@ -163,11 +173,127 @@ def test_k9_matches_twin_and_keeps_root(dev, name, core):
                              core=core, fetch="pregather", twin=True)
     cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, k2, core=core,
                              fetch="dma_i")
+    cuda_pairs.exec_pairs_pre_cuda_t2(
+        kernel, tgt_geo, cuda_pairs._pregather(name, src_fm, gs, B,
+                                               pad8=False),
+        gt, whole, core=core, n_slots=cuda_pairs.n_real_slots(gs),
+        seg_steps=1 << 30)
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES[key] == before + 1
+    assert cuda_pairs.LAUNCHES[key] == before + 2
     assert scale_rel_max(out[2:].cpu(), twin[2:].cpu()) < 1e-4
-    assert torch.equal(out, k2)
+    assert scale_rel_max(out[2:].cpu(), k2[2:].cpu()) < 1e-4
+    assert torch.equal(out[4:], k2[4:])         # one-step runs
+    assert torch.equal(whole, k2)
     assert bool((out[1] == 7.25).all()) and not out[0].any()
+
+
+def _long_runs(dev, keys, seed=2, group=8, nn=16):
+    """Runs of 27-77 steps for `keys` (a treecode leaf's list), pads
+    between some runs and at the tail, inert slots at the end of some
+    steps."""
+    g = torch.Generator().manual_seed(seed)
+    gt = []
+    for k in keys:
+        gt += [k] * int(torch.randint(27, 78, (), generator=g))
+        if torch.rand((), generator=g) < 0.5:
+            gt.append(0)
+    gt = torch.tensor(gt + [0, 0])
+    gs = torch.randint(1, nn, (gt.shape[0], group), generator=g)
+    n_real = torch.randint(1, group + 1, (gt.shape[0],), generator=g)
+    gs = torch.where(torch.arange(group)[None, :] < n_real[:, None], gs, 0)
+    gs[gt == 0] = 0
+    return gt.to(dev), gs.to(dev)
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k8_k9_long_runs_split_match_twins(dev, name, core):
+    """K8 and K9 on runs of 27-77 steps, lean rows, with the runs forced
+    into segments of 1 and 2 steps, at the wrapper's S and unsplit:
+    their twins within 1e-5 rel-RMS and 1e-4 max-rel; the segment and
+    reduction kernels counted, K1/K2 not launched; two launches bit
+    identical, one planned from the wrapper's own host copy of the keys
+    and one from the caller's; K9's rows 0/1 untouched."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    inst = cuda_lib.instance(name, core)
+    for paired, keys in ((False, [3, 9, 12]), (True, [2, 5, 7])):
+        gt, gs = _long_runs(dev, keys)
+        gathered = cuda_pairs._pregather(name, lean, gs, B, pad8=False)
+        slots = cuda_pairs.n_real_slots(gs)
+        out0 = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+        out0[1] = 7.25
+        twin = out0.clone()
+        if paired:
+            run = cuda_pairs.exec_pairs_pre_cuda_t2
+            cuda_pairs.exec_pairs_pre_torch_t2(kernel, tgt_geo, gathered, gt,
+                                               twin, core=core)
+        else:
+            run = functools.partial(cuda_pairs.exec_pairs_pre_cuda,
+                                    final=False)
+            cuda_pairs.exec_pairs_pre_torch(kernel, tgt_geo, gathered, gt,
+                                            twin, final=False, core=core)
+        kinds = ("exec_pre_t2_seg" if paired else "exec_pre_seg",
+                 "exec_pre_reduce")
+        for seg_steps in (1, 2, None, 1 << 30):
+            cuda_pairs.LAUNCHES.clear()
+            # planned from a host copy the wrapper makes, then from the
+            # caller's (the chunked front door's way)
+            outs = [run(kernel, tgt_geo, gathered, gt, out0.clone(),
+                        core=core, n_slots=slots, seg_steps=seg_steps,
+                        gt_host=host)
+                    for host in (None, gt.cpu())]
+            torch.cuda.synchronize()
+            split = seg_steps != 1 << 30
+            assert dict(cuda_pairs.LAUNCHES) == {
+                (k, inst): 2 for k in kinds[:1 + split]}, seg_steps
+            assert torch.equal(outs[0], outs[1]), seg_steps
+            got = outs[0]
+            assert torch.isfinite(got).all()
+            assert rel_rms(got[2:].cpu(), twin[2:].cpu()) <= 1e-5
+            assert scale_rel_max(got[2:].cpu(), twin[2:].cpu()) <= 1e-4
+            assert bool((got[1] == 7.25).all()) and not got[0].any()
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["k8", "k9"])
+def test_k8_k9_chunk_cut_inside_split_run(dev, paired):
+    """The chunked front door with chunks of 16 steps on runs of 27-77
+    steps, so chunk boundaries cut split runs: each chunk's reduction
+    adds onto what the earlier chunks left in the accumulator, within
+    the kernel limit of the twin through the same chunks."""
+    kernel = get_kernel("vortgrad3d")
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS["vortgrad3d"]].contiguous()
+    gt, gs = _long_runs(dev, [2, 5, 7] if paired else [3, 9, 12], seed=3)
+    out = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+    twin = out.clone()
+    default = cuda_pairs.pregather_chunk
+    try:
+        cuda_pairs.pregather_chunk = lambda g, c, b: 16
+        cuda_pairs.LAUNCHES.clear()
+        if paired:
+            cuda_pairs.exec_pairs_t2(kernel, tgt_geo, lean, gt, gs, out,
+                                     fetch="pregather")
+            cuda_pairs.exec_pairs_t2(kernel, tgt_geo, lean, gt, gs, twin,
+                                     fetch="pregather", twin=True)
+        else:
+            cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs,
+                                  fetch="pregather", out_fm=out, final=False)
+            cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs,
+                                  fetch="pregather", out_fm=twin,
+                                  final=False, twin=True)
+    finally:
+        cuda_pairs.pregather_chunk = default
+    torch.cuda.synchronize()
+    inst = cuda_lib.instance("vortgrad3d", "rm")
+    n_chunks = sum(bool((gt[i:i + 16] != 0).any())
+                   for i in range(0, gt.shape[0], 16))
+    seg = "exec_pre_t2_seg" if paired else "exec_pre_seg"
+    assert cuda_pairs.LAUNCHES[(seg, inst)] == n_chunks
+    assert cuda_pairs.LAUNCHES[("exec_pre_reduce", inst)] >= 1
+    assert cuda_pairs.LAUNCHES[("exec", inst)] == 0
+    assert rel_rms(out[2:].cpu(), twin[2:].cpu()) <= 1e-5
+    assert scale_rel_max(out[2:].cpu(), twin[2:].cpu()) <= 1e-4
 
 
 def test_pre_kernels_refuse_bad_input(dev):
@@ -227,7 +353,7 @@ def test_k4_matches_twin_and_oracle(dev, name, core):
 @pytest.mark.parametrize("name", ["vort2d", "vortgrad3d"])
 def test_api_on_card_matches_cpu(dev, name):
     """The library API on the card (device=None) against device='cpu':
-    K8 launched, K1 not."""
+    K8's segment kernel launched, K1 not."""
     from onbody_tpu_torch.api import solver
     kernel = get_kernel(name)
     sx, sr, ss, _, _ = kernel_inputs(kernel, 61, 3000)
@@ -241,8 +367,8 @@ def test_api_on_card_matches_cpu(dev, name):
     inst = cuda_lib.instance(name, "rm")
     before = dict(cuda_pairs.LAUNCHES)
     got = fn(*args, **kw)
-    assert cuda_pairs.LAUNCHES[("exec_pre", inst)] > before.get(
-        ("exec_pre", inst), 0)
+    assert cuda_pairs.LAUNCHES[("exec_pre_seg", inst)] > before.get(
+        ("exec_pre_seg", inst), 0)
     assert cuda_pairs.LAUNCHES[("exec", inst)] == before.get(("exec", inst),
                                                              0)
     ref = fn(*args, **kw, device="cpu")

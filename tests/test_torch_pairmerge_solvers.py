@@ -64,6 +64,20 @@ def test_solvers_at_order_minus_one_match_jax(name, solver):
     assert plan.src_blocks is not None          # pair-merge Blocks, refined
 
 
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_vortgrad3d_at_order_minus_one_matches_jax(solver):
+    """vortgrad3d, the default path of onvortgrad3d: prepare + every
+    solver at order -1 against the JAX package on the same inputs,
+    velocities within 1e-5 rel-RMS and the nine gradients within 5e-5
+    (the treecode tolerance of test_torch_treecode.py), overflow 0."""
+    res, _, plan = _problem("vortgrad3d")
+    ref, got, overflow = res[solver]
+    assert overflow == 0
+    assert rel_rms(got[:, :3], ref[:, :3]) <= 1e-5
+    assert rel_rms(got[:, 3:], ref[:, 3:]) <= 5e-5
+    assert plan.src_blocks is not None
+
+
 @pytest.mark.parametrize("solver,limit", [("solve_treecode2", 3e-2),
                                           ("solve_dtt", 5e-2)])
 def test_pairmerge_envelopes_against_oracle(solver, limit):

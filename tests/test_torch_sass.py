@@ -65,11 +65,11 @@ def test_parse_finds_innermost_loops():
 
 def test_per_pair_counts_and_bound():
     loops = cs.sass_loops(LISTING)
-    # pair loop: 2 RSQ (2 pairs), FADD + 3 FFMA + FMUL = 5 FP32
+    # pair loop: 2 RSQ (2 pairs), FADD + 3 FFMA + FMUL = 5 FP32, 1 LDS
     assert cs.sass_issued(loops, "exec", "grav3d") == dict(
-        fp32=2.5, mufu=1.0, pairs_per_iter=2)
+        fp32=2.5, mufu=1.0, lds=0.5, pairs_per_iter=2)
     assert cs.sass_issued(loops, "direct", "vort2d") == dict(
-        fp32=3.0, mufu=1.0, pairs_per_iter=1)
+        fp32=3.0, mufu=1.0, lds=0.0, pairs_per_iter=1)
     # the bound reads the needed operations, never the issued ones:
     # grav3d's 12 FP32 at 128 lanes outweigh its 1 MUFU at 16
     t, pipe = cs.bound_s(1e12, "grav3d", 2e9)
@@ -106,21 +106,23 @@ def test_needed_ops_match_body_header(name):
 
 
 def test_every_kernel_kind_has_a_sass_name():
-    """sass_report walks cuda_lib.KINDS: each kind names its template,
-    and the executors on pre-gathered sources (exec_pre_runs) are told
-    apart from the id-fetching ones (exec_runs)."""
+    """sass_report walks every kind with a pair loop (all of
+    cuda_lib.KINDS but K8/K9's reduction): each names its template, and
+    the segment kernels on pre-gathered sources (exec_pre_segs) are told
+    apart from the id-fetching executors (exec_runs)."""
     from onbody_tpu_torch.ops import cuda_lib
-    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS)
+    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS) - {"exec_pre_reduce"}
     assert set(cs.SOURCE) == set(cs.REPLACES) == set(cuda_lib.KINDS)
     pre = LISTING.replace("9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_",
-                          "13exec_pre_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_"
-                          "S6_S6_i")
+                          "13exec_pre_segsINS_6Grav3dELb0EEEvPKfS3_PfS4_"
+                          "PKiS6_S6_S6_S6_S6_iiii")
     loops = cs.sass_loops(pre)
-    assert cs.sass_issued(loops, "exec_pre", "grav3d")["pairs_per_iter"] == 2
+    got = cs.sass_issued(loops, "exec_pre_seg", "grav3d")
+    assert got["pairs_per_iter"] == 2
     with pytest.raises(LookupError):
         cs.sass_issued(loops, "exec", "grav3d")
     with pytest.raises(LookupError):
-        cs.sass_issued(loops, "exec_pre_t2", "grav3d")
+        cs.sass_issued(loops, "exec_pre_t2_seg", "grav3d")
 
 
 @pytest.mark.parametrize("mode", ["dma", "d2", "norsqrt", "full"])
