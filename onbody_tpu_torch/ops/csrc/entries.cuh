@@ -1,7 +1,10 @@
 // The plain C entry points of one (workload, core) instantiation:
 //   onbody_exec_<INST>     K1, the unpaired grouped executor (pairs.cuh)
 //   onbody_exec_t2_<INST>  K2, the sibling-paired executor (pairs.cuh)
-//   onbody_direct_<INST>   K4, the direct sum (direct.cuh)
+//   onbody_direct_<INST>   K4, the direct sum over one split of the
+//                          sources per CTA (direct.cuh)
+//   onbody_direct_reduce_<INST>  K4's ordered reduction of the splits'
+//                                partial sums
 //   onbody_exec_pre_seg_<INST>     K8's segment kernel: the unpaired
 //                                  executor on pre-gathered sources, one
 //                                  CTA per segment of a run (pairs.cuh)
@@ -16,7 +19,9 @@
 //                              (pairs.cuh)
 //   onbody_occupancy_<INST>    K10/K11/K12's and K8/K9's segment
 //                              kernels' shared memory per CTA, resident
-//                              CTAs per SM and ring stages
+//                              CTAs per SM, ring stages, registers and
+//                              local bytes per thread
+//   onbody_direct_occupancy_<INST>  the same of K4's direct kernel
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.
 #pragma once
@@ -99,7 +104,20 @@
     return onbody::occupancy<BODY>(kind, B, C, G, info);                   \
   }                                                                        \
   extern "C" int onbody_direct_##INST(const float* tgt, const float* src,  \
-                                      float* out, int M, int S,            \
-                                      void* stream) {                      \
-    return onbody::launch_direct<BODY>(tgt, src, out, M, S, stream);       \
+                                      float* dst, int M, int S,            \
+                                      int splits, void* stream) {          \
+    return onbody::launch_direct<BODY>(tgt, src, dst, M, S, splits,        \
+                                       stream);                            \
+  }                                                                        \
+  extern "C" int onbody_direct_reduce_##INST(float* out,                   \
+                                             const float* partials, int M, \
+                                             int splits, void* stream) {   \
+    return onbody::launch_direct_reduce<BODY>(out, partials, M, splits,    \
+                                              stream);                     \
+  }                                                                        \
+  extern "C" int onbody_direct_occupancy_##INST(int* info) {               \
+    return onbody::occupancy_of((const void*)onbody::direct_kernel<BODY>,  \
+                                onbody::kDirectThreads,                    \
+                                onbody::direct_smem<BODY>(),               \
+                                onbody::kDirectStages, info);              \
   }

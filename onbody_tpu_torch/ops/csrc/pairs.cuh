@@ -689,12 +689,11 @@ int launch_exec_static(const float* tgt_geo, const float* src_gathered,
   const dim3 grid(n_steps, (B + threads - 1) / threads);
   const int stage = pre_stage<Body>(B, G);
   const size_t smem = sizeof(float) * stage * Body::kRows * B;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        exec_static_steps<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // always: an occupancy query at another B may have set a smaller limit
+  const cudaError_t err = cudaFuncSetAttribute(
+      exec_static_steps<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   exec_static_steps<Body><<<grid, threads, smem, (cudaStream_t)stream>>>(
       tgt_geo, src_gathered, rows, step_tgt, steps, n_slots, B, C, G, od8,
       stage);
@@ -702,7 +701,8 @@ int launch_exec_static(const float* tgt_geo, const float* src_gathered,
 }
 
 // Dynamic shared memory per CTA, resident CTAs per SM and ring stages of
-// one launch configuration, into info[0..2].
+// one launch configuration, and the kernel's registers per thread and
+// local (spill) bytes per thread, into info[0..4].
 inline int occupancy_of(const void* fn, int threads, size_t smem,
                         int n_stages, int* info) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -711,9 +711,14 @@ inline int occupancy_of(const void* fn, int threads, size_t smem,
   int ctas = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
                                                       smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
   info[0] = (int)smem;
   info[1] = ctas;
   info[2] = n_stages;
+  info[3] = attr.numRegs;
+  info[4] = (int)attr.localSizeBytes;
   return (int)err;
 }
 

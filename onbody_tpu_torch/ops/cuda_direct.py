@@ -1,4 +1,4 @@
-"""Direct O(N^2) summation: kernel K4 and its plain twin (port of
+"""Direct O(N^2) summation: kernel K4 and its plain twins (port of
 onbody_tpu/ops/pallas_direct.py), for every workload.
 
 `direct_cuda` launches csrc/direct.cuh's instantiation for the kernel
@@ -6,22 +6,39 @@ and core on CUDA tensors and returns the plain PyTorch twin
 `direct_torch` for CPU tensors; it never moves work between devices.
 Both read the sources in the reference's lean feature-major rows
 (`featurize`) and evaluate each pair with the kernel's per-pair form.
+
+K4 is a kernel over (target tiles x source splits) and, when the sources
+were split, an ordered reduction of the splits' partial sums
+(`direct_reduce`). The wrapper picks the split count on the host
+(`plan_splits`, from the occupancy query: `splits_for`);
+`direct_split_torch` is the plain twin of the split path.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
 from onbody_tpu_torch.ops import cuda_lib
+from onbody_tpu_torch.ops.cuda_pairs import PREGATHER_BYTES
 from onbody_tpu_torch.ops.kernels import Kernel, featurize
 
-# kernel launches by the wrapper, keyed ("direct", instance) with the
-# instance as cuda_lib.instance names it (reset by callers that count a run)
+# kernel launches by the wrapper, keyed (kind, instance) with kind
+# "direct" (the kernel) or "direct_reduce" (its reduction) and the
+# instance as cuda_lib.instance names it (reset by callers that count a
+# run)
 LAUNCHES = collections.Counter()
 # the twin's (targets, sources) tile: bounds its (T, S) temporaries
 _TILE_T, _TILE_S = 1024, 4096
+# csrc/direct.cuh's targets per CTA (kDirectThreads * kDirectTgts) and
+# sources per staged chunk (kDirectChunk)
+TILE_T, CHUNK_S = 512, 512
+# waves of resident CTAs the split grid should fill
+SPLIT_WAVES = 2
+# bytes of the split partials' scratch, at most: the pregather buffer's
+SCRATCH_BYTES = PREGATHER_BYTES
 
 
 def _check_shapes(kernel: Kernel, tx, tr, sx, sr, ss):
@@ -50,16 +67,123 @@ def direct_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm"):
     return out
 
 
-def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm"):
+# ------------------------------------------------------------ the split plan
+
+def split_bounds(s: int, splits: int):
+    """The [lo, hi) source range of each of `splits` splits, in split
+    order, as K4 cuts them: split j takes the chunks of CHUNK_S sources
+    [j * C / splits, (j + 1) * C / splits) of the C = ceil(S / CHUNK_S)
+    (whole chunks, counts differing by one at most; the last chunk may
+    be short)."""
+    chunks = -(-s // CHUNK_S)
+    return [(min(s, j * chunks // splits * CHUNK_S),
+             min(s, (j + 1) * chunks // splits * CHUNK_S))
+            for j in range(splits)]
+
+
+def plan_splits(m: int, s: int, od: int, ctas_per_sm: int, sms: int,
+                scratch_bytes: int = SCRATCH_BYTES) -> int:
+    """K4's split planner: the number of source splits for M targets and
+    S sources. The smallest count whose grid (target tiles of TILE_T x
+    splits) fills SPLIT_WAVES waves of ctas_per_sm resident CTAs on `sms`
+    SMs, at most one split per chunk and capped so that the partial
+    slabs (splits x M x OD floats) fit in scratch_bytes; 1 when the tiles
+    alone fill the waves."""
+    chunks = -(-s // CHUNK_S)
+    tiles = -(-m // TILE_T)
+    want = -(-SPLIT_WAVES * sms * max(ctas_per_sm, 1) // max(tiles, 1))
+    cap = scratch_bytes // (4 * max(m, 1) * od)
+    return max(1, min(want, chunks, cap))
+
+
+@functools.cache
+def _resident(inst: str, device_index: int):
+    with torch.cuda.device(device_index):
+        ctas = cuda_lib.occupancy("direct", inst, 0, 0, 0)["ctas_per_sm"]
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return ctas, sms
+
+
+def splits_for(kernel: Kernel, core: str, m: int, s: int, device):
+    """plan_splits with the card's SMs and K4's resident CTAs per SM
+    (the CUDA occupancy calculator)."""
+    ctas, sms = _resident(cuda_lib.instance(kernel.name, core),
+                          device.index or 0)
+    return plan_splits(m, s, kernel.od, ctas, sms)
+
+
+def reduce_splits_torch(partials):
+    """Plain twin of K4's reduction: the (splits, M, OD) partial slabs
+    summed in split order."""
+    out = partials[0].clone()
+    for p in partials[1:]:
+        out += p
+    return out
+
+
+def direct_split_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
+                       splits: int = 1):
+    """Plain twin of K4's split path: direct_torch over each split's
+    sources (split_bounds), then the partials summed in split order."""
+    parts = [direct_torch(kernel, tx, tr, sx[lo:hi], sr[lo:hi], ss[lo:hi],
+                          core)
+             for lo, hi in split_bounds(sx.shape[0], splits)]
+    return reduce_splits_torch(torch.stack(parts))
+
+
+# --------------------------------------------------------------- the kernel
+
+def layout(kernel: Kernel, tx, tr, sx, sr, ss):
+    """K4's inputs: targets feature-major (PD+1, M) [pos | radius] and
+    sources in the lean feature-major rows (C, S), as the executors read
+    them."""
+    tgt = torch.cat([tx.T, tr[None, :]], dim=0).contiguous()
+    src = featurize(kernel.name, sx, sr, ss, pad8=False).contiguous()
+    return tgt, src
+
+
+def launch_kernel(kernel: Kernel, core: str, tgt, src, dst,
+                  splits: int) -> None:
+    """K4's kernel alone on laid-out inputs (`layout`): dst is the output
+    (M, OD) for one split, else the scratch (splits, M, OD)."""
+    inst = cuda_lib.instance(kernel.name, core)
+    m, s = tgt.shape[1], src.shape[1]
+    name = cuda_lib.entry("direct", inst)
+    rc = getattr(cuda_lib.lib(), name)(
+        tgt.data_ptr(), src.data_ptr(), dst.data_ptr(), m, s, splits,
+        cuda_lib.stream_ptr(dst.device))
+    cuda_lib.check(rc, name)
+    LAUNCHES[("direct", inst)] += 1
+
+
+def reduce_splits_cuda(kernel: Kernel, core: str, out, partials) -> None:
+    """K4's ordered reduction: out (M, OD) = the partial slabs (splits,
+    M, OD) summed in split order."""
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry("direct_reduce", inst)
+    rc = getattr(cuda_lib.lib(), name)(
+        out.data_ptr(), partials.data_ptr(), out.shape[0],
+        partials.shape[0], cuda_lib.stream_ptr(out.device))
+    cuda_lib.check(rc, name)
+    LAUNCHES[("direct_reduce", inst)] += 1
+
+
+def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
+                splits: int = None):
     """Direct sum, shapes as direct_torch. CUDA tensors launch K4; CPU
-    tensors take the twin; anything else raises.
+    tensors take the twin; anything else raises. `splits` forces the
+    number of source splits (None: splits_for's).
 
     K4 replaces onbody_tpu/ops/pallas_direct.py:direct_pallas. It is
     bound by the SM's FP32/MUFU rates over the operations each pair
     needs (counted in the body's header; PERF.md has the bound), not by
-    memory: each CTA keeps 256 target sums in registers and stages the
-    sources 1024 at a time in shared memory, so a source is read from
-    device memory once per 256 targets (csrc/direct.cuh)."""
+    memory: a CTA keeps 512 target sums in registers (two per thread)
+    and stages its split's sources through shared memory, so a source
+    is read from device memory once per 512 targets. When the target
+    tiles cannot fill the card, the sources are split over CTAs and the
+    splits' partial sums are added in split order by a second kernel
+    (csrc/direct.cuh)."""
     devs = {t.device for t in (tx, tr, sx, sr, ss)}
     if len(devs) != 1:
         raise ValueError(f"direct: tensors on several devices {devs}")
@@ -68,7 +192,7 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm"):
         return direct_torch(kernel, tx, tr, sx, sr, ss, core)
     if dev.type != "cuda":
         raise ValueError(f"direct: no kernel for device {dev}")
-    inst = cuda_lib.instance(kernel.name, core)
+    cuda_lib.instance(kernel.name, core)  # raises for a core without one
     _check_shapes(kernel, tx, tr, sx, sr, ss)
     for name, t in (("tx", tx), ("tr", tr), ("sx", sx), ("sr", sr),
                     ("ss", ss)):
@@ -81,13 +205,18 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm"):
     out = torch.empty((m, kernel.od), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    # feature-major inputs, as the executors read them
-    tgt = torch.cat([tx.T, tr[None, :]], dim=0).contiguous()
-    src = featurize(kernel.name, sx, sr, ss, pad8=False).contiguous()
-    name = cuda_lib.entry("direct", inst)
-    rc = getattr(cuda_lib.lib(), name)(
-        tgt.data_ptr(), src.data_ptr(), out.data_ptr(), m, s,
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check(rc, name)
-    LAUNCHES[("direct", inst)] += 1
+    if splits is None:
+        splits = splits_for(kernel, core, m, s, dev)
+    elif splits < 1:
+        raise ValueError(f"direct: {splits} splits, need >= 1")
+    if -(-m // TILE_T) * splits >= 2 ** 31:
+        raise ValueError("direct: the grid must fit in int32")
+    tgt, src = layout(kernel, tx, tr, sx, sr, ss)
+    if splits == 1:
+        launch_kernel(kernel, core, tgt, src, out, 1)
+        return out
+    partials = torch.empty((splits, m, kernel.od), dtype=torch.float32,
+                           device=dev)
+    launch_kernel(kernel, core, tgt, src, partials, splits)
+    reduce_splits_cuda(kernel, core, out, partials)
     return out

@@ -3,8 +3,9 @@
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
 `vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12; K8 and K9
-each a segment kernel and an ordered reduction) and direct
-(K4) templates (`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
+each a segment kernel and an ordered reduction) and direct (K4, a
+kernel and an ordered reduction of its source splits) templates
+(`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
 also K13, K10's template on the four ablated grav3d bodies
 (`grav3d_ablate_body.cuh`); nvcc compiles
 the units in parallel for sm_90a and links them into
@@ -42,11 +43,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # core_func values with a CUDA body (core.cuh); grav3d has no core
 CUDA_CORES = ("rm", "exp")
 # K8 and K9 are each a segment kernel ("exec_pre_seg", "exec_pre_t2_seg")
-# and the ordered reduction they share ("exec_pre_reduce")
-KINDS = ("exec", "exec_t2", "direct", "exec_pre_seg", "exec_pre_t2_seg",
-         "exec_pre_reduce", "exec_dma", "exec_dmap", "exec_static")
+# and the ordered reduction they share ("exec_pre_reduce"); K4 is the
+# direct kernel ("direct") and the ordered reduction of its source
+# splits ("direct_reduce")
+KINDS = ("exec", "exec_t2", "direct", "direct_reduce", "exec_pre_seg",
+         "exec_pre_t2_seg", "exec_pre_reduce", "exec_dma", "exec_dmap",
+         "exec_static")
 # kinds whose shared memory and residency `occupancy` reports, by the
-# code the C entry point takes
+# code the C entry point takes (K4's "direct" has an entry of its own)
 OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2,
                    "exec_pre_seg": 3, "exec_pre_t2_seg": 4}
 # K13's modes: entry points onbody_exec_ablate_<mode> and
@@ -61,7 +65,8 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "exec": [_P] * 6 + [_I] * 5 + [_P],
     "exec_t2": [_P] * 6 + [_I] * 5 + [_P],
-    "direct": [_P] * 3 + [_I] * 2 + [_P],
+    "direct": [_P] * 3 + [_I] * 3 + [_P],
+    "direct_reduce": [_P] * 2 + [_I] * 2 + [_P],
     "exec_pre_seg": [_P] * 10 + [_I] * 5 + [_P],
     "exec_pre_t2_seg": [_P] * 10 + [_I] * 5 + [_P],
     "exec_pre_reduce": [_P] * 4 + [_I] * 4 + [_P],
@@ -69,6 +74,7 @@ _ARGTYPES = {
     "exec_dmap": [_P] * 6 + [_I] * 5 + [_P],
     "exec_static": [_P] * 6 + [_I] * 5 + [_P],
     "occupancy": [_I] * 4 + [_P],
+    "direct_occupancy": [_P],
 }
 
 
@@ -154,7 +160,7 @@ def lib() -> ctypes.CDLL:
     build()
     so = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
     for inst in INSTANCES:
-        for kind in KINDS + ("occupancy",):
+        for kind in KINDS + ("occupancy", "direct_occupancy"):
             fn = getattr(so, entry(kind, inst))
             fn.argtypes = _ARGTYPES[kind]
             fn.restype = ctypes.c_int
@@ -171,20 +177,25 @@ def lib() -> ctypes.CDLL:
 
 
 def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
-    """Dynamic shared memory per CTA (bytes), resident CTAs per SM and
-    ring stages of a K10/K11/K12 or K8/K9 segment launch at (B, C, G)
-    (a kind of OCCUPANCY_KINDS), from the CUDA
-    occupancy calculator. kind "ablate_<mode>" (inst "grav3d") reports
-    K13's launch of that mode."""
-    info = (ctypes.c_int * 3)()
+    """Dynamic shared memory per CTA (bytes), resident CTAs per SM, ring
+    stages, registers per thread and local (spill) bytes per thread of a
+    K10/K11/K12 or K8/K9 segment launch at (B, C, G) (a kind of
+    OCCUPANCY_KINDS), or of a K4 launch (kind "direct"; B, C, G unused),
+    from the CUDA occupancy calculator and the kernel's attributes. kind
+    "ablate_<mode>" (inst "grav3d") reports K13's launch of that mode."""
+    info = (ctypes.c_int * 5)()
     if kind.startswith("ablate_"):
         name = f"onbody_occupancy_{kind}"
         check(getattr(lib(), name)(b, c, g, ctypes.addressof(info)), name)
+    elif kind == "direct":
+        name = entry("direct_occupancy", inst)
+        check(getattr(lib(), name)(ctypes.addressof(info)), name)
     else:
         check(getattr(lib(), entry("occupancy", inst))(
             OCCUPANCY_KINDS[kind], b, c, g, ctypes.addressof(info)),
             entry("occupancy", inst))
-    return dict(smem=info[0], ctas_per_sm=info[1], stages=info[2])
+    return dict(smem=info[0], ctas_per_sm=info[1], stages=info[2],
+                regs=info[3], local_bytes=info[4])
 
 
 def check(rc: int, what: str) -> None:

@@ -10,14 +10,14 @@ and body arithmetic (rsqrtf as 1/sqrtf) without a GPU; the card itself
 is tested in test_torch_cuda.py. Skips where there is no g++.
 
 K10 and K11 fetch their blocks with bulk asynchronous copies and
-mbarriers, and K8/K9's segment kernel with cp.async, inline PTX that g++
-cannot build; all of it lives in csrc/async_copy.cuh, and this test
-swaps that one header for a synchronous host version (HOST_ASYNC: the
-bulk copy is a memcpy that completes its barrier's phase at once, the
-wait checks that the phase it waits for has completed; a cp.async is a
-plain store). So for K8-K11 the emulation checks the indexing, the slot
-walk, the ring's stage and phase bookkeeping and the order of the sums,
-not asynchrony.
+mbarriers, and K8/K9's segment kernel and K4 with cp.async, inline PTX
+that g++ cannot build; all of it lives in csrc/async_copy.cuh, and this
+test swaps that one header for a synchronous host version (HOST_ASYNC:
+the bulk copy is a memcpy that completes its barrier's phase at once,
+the wait checks that the phase it waits for has completed; a cp.async
+is a plain store). So for K4 and K8-K11 the emulation checks the indexing,
+the slot walk, the ring's stage and phase bookkeeping and the order of
+the sums, not asynchrony.
 
 Limits: there is no concurrency inside a block, so nothing here tests
 the barriers, shared-memory races, the copies' asynchrony or any
@@ -83,6 +83,15 @@ template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*,
                                                          int, size_t) {
   *n = 1;
+  return 0;
+}
+struct cudaFuncAttributes {
+  int numRegs;
+  size_t localSizeBytes;
+};
+inline int cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
+  a->numRegs = 0;
+  a->localSizeBytes = 0;
   return 0;
 }
 template <class... A> struct HostLaunch {
@@ -248,27 +257,56 @@ def test_host_k2_matches_twin_and_keeps_root(host_lib, name, core):
     assert (out[1] == 7.25).all() and not out[0].any()
 
 
+# (M, S, forced splits): 301 targets (a partial CTA tile of 512, in which
+# threads 45-255 have no second target) against 2500 sources (four full
+# chunks of 512 and a short one, some sources on the targets themselves),
+# in one launch and cut into 3 splits (1, 2 and 2 chunks) plus the
+# reduction; then an odd M, 777 (the second tile's threads 9-255 have no
+# second target), against 2561 sources (five full chunks and one of a
+# single source), in one launch and in 3 splits of 2 chunks
+K4_CASES = [(301, 2500, 1), (301, 2500, 3), (777, 2561, 1), (777, 2561, 3)]
+
+
+@pytest.mark.parametrize("m,s,splits", K4_CASES,
+                         ids=[f"{m}x{s}-{k}" for m, s, k in K4_CASES])
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_host_k4_matches_twin(host_lib, name, core):
-    """Ragged on both axes: 301 targets (a partial CTA of 256) against
-    2500 sources (two full chunks of 1024 and a short one), some sources
-    on the targets themselves."""
+def test_host_k4_matches_twin(host_lib, name, core, m, s, splits):
+    """K4 as the wrapper runs it: one launch writing the output, or a
+    launch writing one partial slab per split (each held against the twin
+    on its split's sources; the scratch starts as NaN, so a value the
+    kernel should have written and did not shows), then the ordered
+    reduction; against the twin and the split path's twin."""
     kernel = get_kernel(name)
     g = torch.Generator().manual_seed(4)
-    m, s = 301, 2500
     tx = torch.rand((m, kernel.pd), generator=g)
     tr = torch.full((m,), 0.03)
     sx = torch.cat([tx[:40], torch.rand((s - 40, kernel.pd), generator=g)])
     sr = 0.02 + 0.03 * torch.rand((s,), generator=g)
     ss = torch.randn((s, kernel.sd), generator=g) / s
-    tgt = torch.cat([tx.T, tr[None, :]]).contiguous()
-    src = featurize(name, sx, sr, ss, pad8=False).contiguous()
+    tgt, src = cuda_direct.layout(kernel, tx, tr, sx, sr, ss)
     out = torch.full((m, kernel.od), float("nan"))
+    dst = out if splits == 1 else torch.full((splits, m, kernel.od),
+                                             float("nan"))
     assert _entry(host_lib, "direct", name, core)(
-        tgt.data_ptr(), src.data_ptr(), out.data_ptr(), m, s, None) == 0
+        tgt.data_ptr(), src.data_ptr(), dst.data_ptr(), m, s, splits,
+        None) == 0
+    if splits > 1:
+        bounds = cuda_direct.split_bounds(s, splits)
+        for part, (lo, hi) in zip(dst, bounds):
+            ref = cuda_direct.direct_torch(kernel, tx, tr, sx[lo:hi],
+                                           sr[lo:hi], ss[lo:hi], core)
+            rms, mx = _errors(part, ref)
+            assert rms <= REL_RMS and mx <= MAX_REL, (lo, hi)
+        assert _entry(host_lib, "direct_reduce", name, core)(
+            out.data_ptr(), dst.data_ptr(), m, splits, None) == 0
+        # the reduction adds the slabs in split order, as its twin does
+        assert torch.equal(out, cuda_direct.reduce_splits_torch(dst))
     twin = cuda_direct.direct_torch(kernel, tx, tr, sx, sr, ss, core)
-    rms, mx = _errors(out, twin)
-    assert rms <= REL_RMS and mx <= MAX_REL
+    split_twin = cuda_direct.direct_split_torch(kernel, tx, tr, sx, sr, ss,
+                                                core, splits)
+    for ref in (twin, split_twin):
+        rms, mx = _errors(out, ref)
+        assert rms <= REL_RMS and mx <= MAX_REL
 
 
 def _run_pre(lib, kind, kernel, core, tgt_geo, src_gathered, gt, out,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (K1, K2 pair executors; K8, K9
 the same on pre-gathered sources; K10, K11 fetching by bulk copies; K12
-one row per step; K13, K10 on the ablated grav3d bodies; K4 direct)
+one row per step; K13, K10 on the ablated grav3d bodies; K4 direct, its
+source splits and their reduction)
 against their plain twins and the fp64
 oracle, for every (workload, core) instantiation, and the slice on the
 card against the slice on the CPU for every workload and fetch. Every
@@ -350,6 +351,72 @@ def test_k4_matches_twin_and_oracle(dev, name, core):
     assert rel_rms(got.cpu(), orc) < 1e-5
 
 
+# K4's forced split counts: one launch writing the output, and the
+# sources cut into 2 and 7 splits of whole chunks plus the reduction
+K4_SPLITS = [1, 2, 7]
+
+
+@pytest.mark.parametrize("splits", K4_SPLITS)
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k4_forced_splits_match_twins(dev, name, core, splits):
+    """K4 at a forced split count, on 1500 targets (a tile and a ragged
+    one) against 9000 sources (17 chunks of 512 and a short one): the
+    twin within chip_smoke.py's kernel limits (1e-5 rel-RMS, 1e-4
+    max-rel), the split path's twin, two calls bit identical, and the
+    launches of the kernel and its reduction (none for one split)."""
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 6, 9000, 1500)
+    args = [torch.from_numpy(a) for a in (tx, tr, sx, sr, ss)]
+    if not kernel.uses_tr:
+        args[1] = torch.zeros_like(args[1])
+    cargs = [a.to(dev) for a in args]
+    inst = cuda_lib.instance(name, core)
+    kinds = ("direct", "direct_reduce")
+    before = {k: cuda_direct.LAUNCHES[(k, inst)] for k in kinds}
+    got = cuda_direct.direct_cuda(kernel, *cargs, core, splits=splits)
+    again = cuda_direct.direct_cuda(kernel, *cargs, core, splits=splits)
+    torch.cuda.synchronize()
+    assert {k: cuda_direct.LAUNCHES[(k, inst)] - before[k]
+            for k in kinds} == {"direct": 2,
+                                "direct_reduce": 2 * (splits > 1)}
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    for ref in (cuda_direct.direct_torch(kernel, *args, core),
+                cuda_direct.direct_split_torch(kernel, *args, core,
+                                               splits)):
+        assert rel_rms(got.cpu(), ref) <= 1e-5
+        assert scale_rel_max(got.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_k4_plan_launches_and_bits(dev, name):
+    """K4 at the wrapper's own plan: a few targets against many sources
+    split (the kernel and one reduction), targets that fill two waves
+    of the most CTAs an SM holds (8 of 256 threads) not (the kernel
+    alone); each twice, bit identical."""
+    kernel = get_kernel(name)
+    inst = cuda_lib.instance(name, "rm")
+    for m, s in ((700, 40_000), (1_100_000, 600)):
+        sx, sr, ss, tx, tr = kernel_inputs(kernel, 8, s, m)
+        args = [torch.from_numpy(a).to(dev) for a in (tx, tr, sx, sr, ss)]
+        splits = cuda_direct.splits_for(kernel, "rm", m, s, dev)
+        assert (splits > 1) == (m == 700)
+        before = {k: cuda_direct.LAUNCHES[(k, inst)]
+                  for k in ("direct", "direct_reduce")}
+        got = cuda_direct.direct_cuda(kernel, *args)
+        again = cuda_direct.direct_cuda(kernel, *args)
+        torch.cuda.synchronize()
+        assert cuda_direct.LAUNCHES[("direct", inst)] == before["direct"] + 2
+        assert cuda_direct.LAUNCHES[("direct_reduce", inst)] == (
+            before["direct_reduce"] + 2 * (splits > 1))
+        assert torch.equal(got, again)
+        rows = slice(0, m, max(1, m // 500))
+        twin = cuda_direct.direct_torch(kernel, *(a.cpu() for a in (
+            args[0][rows], args[1][rows], *args[2:])))
+        assert rel_rms(got[rows].cpu(), twin) <= 1e-5
+        assert scale_rel_max(got[rows].cpu(), twin) <= 1e-4
+
+
 @pytest.mark.parametrize("name", ["vort2d", "vortgrad3d"])
 def test_api_on_card_matches_cpu(dev, name):
     """The library API on the card (device=None) against device='cpu':
@@ -478,6 +545,27 @@ def test_k12_matches_twin_and_k1(dev, name, core):
     for ref in (twin, k1):
         assert rel_rms(got[1:].cpu(), ref[1:].cpu()) <= 1.1e-6
     assert not got[torch.tensor([0, 3, 4, 6, 8], device=dev)].any()
+
+
+def test_k12_launch_after_smaller_occupancy_query(dev):
+    """An occupancy query at a small B sets K12's shared-memory limit to
+    that B's size; the launch at a larger B then sets its own (it used
+    to set it only above 48 KiB, and was refused) and matches its
+    twin."""
+    src_fm, tgt_geo = _blocks(dev)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS["grav3d"]].contiguous()
+    gt, gs = _groups(dev, [1, 1, 0, 2, 2, 2, 0, 5, 7, 9, 9, 9, 0])
+    c = lean.shape[1]
+    big = cuda_lib.occupancy("exec_static", "grav3d", B, c, 8)
+    small = cuda_lib.occupancy("exec_static", "grav3d", 32, c, 8)
+    assert small["smem"] < big["smem"] <= 48 * 1024
+    before = cuda_pairs.LAUNCHES[("exec_static", "grav3d")]
+    got = cuda_pairs.exec_pairs(KER, tgt_geo, lean, gt, gs, fetch="static")
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[("exec_static", "grav3d")] == before + 1
+    twin = cuda_pairs.exec_pairs(KER, tgt_geo, lean, gt, gs, fetch="static",
+                                 twin=True)
+    assert rel_rms(got[1:].cpu(), twin[1:].cpu()) <= 1.1e-6
 
 
 def test_fetch_kernels_refuse_unaligned_blocks(dev):

@@ -105,13 +105,26 @@ def test_needed_ops_match_body_header(name):
     assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS[name]
 
 
+def test_other_instructions_per_pair():
+    """sass_other: every instruction of the pair loop per pair, and those
+    that are not FP32, MUFU or LDS (the branches, checks and calls an
+    IEEE operation adds) by opcode."""
+    loops = cs.sass_loops(LISTING)
+    assert cs.sass_other(loops, "exec", "grav3d") == {
+        "all": 5.0, "FSEL": 0.5, "BRA": 0.5}
+    assert cs.sass_other(loops, "direct", "vort2d") == {"all": 5.0,
+                                                        "BRA": 1.0}
+
+
 def test_every_kernel_kind_has_a_sass_name():
     """sass_report walks every kind with a pair loop (all of
-    cuda_lib.KINDS but K8/K9's reduction): each names its template, and
-    the segment kernels on pre-gathered sources (exec_pre_segs) are told
-    apart from the id-fetching executors (exec_runs)."""
+    cuda_lib.KINDS but K8/K9's and K4's reductions): each names its
+    template, and the segment kernels on pre-gathered sources
+    (exec_pre_segs) are told apart from the id-fetching executors
+    (exec_runs)."""
     from onbody_tpu_torch.ops import cuda_lib
-    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS) - {"exec_pre_reduce"}
+    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS) - {"exec_pre_reduce",
+                                                       "direct_reduce"}
     assert set(cs.SOURCE) == set(cs.REPLACES) == set(cuda_lib.KINDS)
     pre = LISTING.replace("9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_",
                           "13exec_pre_segsINS_6Grav3dELb0EEEvPKfS3_PfS4_"
