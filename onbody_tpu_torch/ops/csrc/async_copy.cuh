@@ -1,13 +1,13 @@
 // The asynchronous copies of the executors (pairs.cuh). K10 and K11: one
 // thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk) of
 // contiguous global memory into shared memory, and the copy reports its
-// bytes to an mbarrier in shared memory that the readers wait on. K8/K9's
-// segment kernel: every thread copies single floats with cp.async (4
-// bytes, so a copy can transpose a block into its staged layout), commits
-// them as one group per staged block and waits until at most N groups
-// are pending. Nothing else lives here: the host emulation of the sources
-// (tests/test_torch_csrc_host.py) swaps this one header for a synchronous
-// version.
+// bytes to an mbarrier in shared memory that the readers wait on. The
+// K1/K2 and K8/K9 tile (and K4, direct.cuh): every thread copies single
+// floats with cp.async (4 bytes, so a copy can transpose a block into its
+// staged layout), commits them as one group per staged block and waits
+// until at most N groups are pending. Nothing else lives here: the host
+// emulation of the sources (tests/test_torch_csrc_host.py) swaps this one
+// header for a synchronous version.
 //
 // Contract: addresses and sizes are multiples of 16 bytes; each mbarrier
 // is initialised with an arrival count of 1, and each use of it is one

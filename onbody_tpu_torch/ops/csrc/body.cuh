@@ -4,7 +4,7 @@
 // vortgrad3d_body.cuh) is a struct that provides
 //   kRows            rows of a source block it stages in shared memory;
 //   kOut             outputs per target (the workload's OD);
-//   kUnroll/kUnroll2 unroll of block() and block2();
+//   kUnroll          unroll of block();
 //   Tgt load_tgt(g, stride)  a target from a feature-major column
 //                    [pos | radius] whose rows lie `stride` floats apart;
 //   staged(r, v)     the staged value of fm row r, with any per-source
@@ -45,40 +45,17 @@ __device__ __forceinline__ void block(const float* __restrict__ sm,
   for (int o = 0; o < Body::kOut; ++o) acc[o] += part[o];
 }
 
-// The same on two targets at once: each staged source is read once from
-// shared memory and serves both (the sibling-paired executor).
-template <class Body>
-__device__ __forceinline__ void block2(const float* __restrict__ sm,
-                                       int stride, int n,
-                                       const typename Body::Tgt& t0,
-                                       const typename Body::Tgt& t1,
-                                       float (&acc0)[Body::kOut],
-                                       float (&acc1)[Body::kOut]) {
-  float p0[Body::kOut], p1[Body::kOut];
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) p0[o] = p1[o] = 0.f;
-#pragma unroll (Body::kUnroll2)
-  for (int q = 0; q < n; ++q) {
-    const typename Body::Src s = Body::load_src(sm + q, stride);
-    Body::pair(s, t0, p0);
-    Body::pair(s, t1, p1);
-  }
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) {
-    acc0[o] += p0[o];
-    acc1[o] += p1[o];
-  }
-}
-
-// Floats a source takes in the staged layout of K8/K9's segment kernel
-// (pairs.cuh): its kRows values side by side, padded to whole float4s.
+// Floats a source takes in the staged layout of the K1/K2 and K8/K9 tile
+// (pairs.cuh exec_tile): its kRows values side by side, padded to whole
+// float4s.
 template <class Body>
 __host__ __device__ constexpr int aos_floats() {
   return (Body::kRows + 3) / 4 * 4;
 }
 
-// The pair loop of K8/K9: the first n sources of a block staged source by
-// source (aos_floats<Body>() each, 16-byte aligned) against kN targets.
+// The pair loop of K1/K2, K8/K9 and K4: the first n sources of a block
+// staged source by source (aos_floats<Body>() each, 16-byte aligned)
+// against kN targets.
 // One source is brought in by one 16-byte broadcast load per four rows
 // (one for vort2d's 4 rows, two for the 5 and 7 of the 3D bodies) and
 // serves all kN targets, so the shared loads per pair fall from kRows to

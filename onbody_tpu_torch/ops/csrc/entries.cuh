@@ -17,10 +17,10 @@
 //                              one copy (pairs.cuh)
 //   onbody_exec_static_<INST>  K12, one output row per pre-gathered step
 //                              (pairs.cuh)
-//   onbody_occupancy_<INST>    K10/K11/K12's and K8/K9's segment
-//                              kernels' shared memory per CTA, resident
-//                              CTAs per SM, ring stages, registers and
-//                              local bytes per thread
+//   onbody_occupancy_<INST>    K1/K2's, K10/K11/K12's and K8/K9's
+//                              segment kernels' shared memory per CTA,
+//                              resident CTAs per SM, ring stages,
+//                              registers and local bytes per thread
 //   onbody_direct_occupancy_<INST>  the same of K4's direct kernel
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.

@@ -40,8 +40,7 @@ namespace onbody {
 // The staging all four modes share: the five rows as they are, row 3
 // squared by the modes that read sr^2 (kRawStage false: K10 squares it in
 // the staged block once per source). Only K10's template runs these
-// bodies, so they leave out what K1's staging (stage) and K2's paired
-// loop (kUnroll2) would need.
+// bodies, so they leave out the plain staging (stage) that K12 needs.
 template <bool kSquareSr>
 struct AblateStage {
   static constexpr int kRows = 5;

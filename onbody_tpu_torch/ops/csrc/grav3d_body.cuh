@@ -23,7 +23,6 @@ struct Grav3d {
   static constexpr int kRows = 5;
   static constexpr int kOut = 3;
   static constexpr int kUnroll = 4;
-  static constexpr int kUnroll2 = 2;
 
   struct Tgt {
     float x, y, z;

@@ -1,37 +1,13 @@
 // Grouped pair executors, templated on the per-pair body (body.cuh), one
 // instantiation per (workload, core): K1 (unpaired) and K2 (sibling-paired)
-// fetch their source blocks by id; K8 and K9 (further down) compute the
-// same sums from source blocks gathered contiguous per step, one CTA per
-// segment of a run and an ordered reduction of the split runs; K10 and K11
-// fetch by id with bulk asynchronous copies, K11 two adjacent blocks per
-// copy; K12 gives every step its own output row.
-//
-// Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk with
-// _body_interleaved (K1) and :_exec_chunk_t2 with _body_interleaved_t2
-// (K2). The TPU kernels walk the step list sequentially on one core,
-// keep the current target row resident in VMEM across a run of steps and
-// hide the scalar-issued source DMAs behind the MXU work. Hopper runs
-// blocks in parallel and in no order, so the sequential grid becomes one
-// CTA per RUN of equal target rows (computed on the host side by the
-// wrapper): each CTA owns its output row outright, keeps the sums in
-// registers and writes the row once, with no atomics and a deterministic
-// result.
-//
-// Inside a CTA each thread owns one target point of the row (two in K2:
-// the same point of rows 2q and 2q+1). The CTA loops over its steps and
-// their G source ids, stages each source block's rows in shared memory
-// (Body::kRows * B floats) and every thread sums it. Source id 0 is the
-// inert pad row and contributes exactly zero, so it is skipped; pad steps
-// never form a run and are never visited (in K2 this is what keeps rows 0
-// and 1, the root accumulator, untouched, for every body).
-//
-// What bounds it: a block of B sources is reused by B targets (2B in K2),
-// so device-memory traffic is ~kRows*4/B bytes per pair and the kernel is
-// bound by the SM's FP32/MUFU rates over the operations each pair needs
-// (counted in the body's header; PERF.md gives the bound). This
-// first version stages with plain loads and a barrier per block (no
-// cp.async/TMA double buffering yet) and leaves the occupancy to the run
-// count; both are later work.
+// fetch their source blocks by id; K8 and K9 compute the same sums from
+// source blocks gathered contiguous per step, one CTA per segment of a run
+// and an ordered reduction of the split runs; K10 and K11 fetch by id with
+// bulk asynchronous copies, K11 two adjacent blocks per copy; K12 gives
+// every step its own output row. K1/K2 and K8/K9 run one CTA tile
+// (exec_tile: its pair loop, its ring of staged blocks, its order of sums)
+// and differ only in how the tile finds its blocks (IdCursor,
+// GatheredCursor).
 //
 // Offsets into the (NN, rows, B) arrays are 64-bit: at N = 1e8 NN*C*B
 // reaches 2^31, and row*od8*B doubles again for vortgrad3d (od8 = 16).
@@ -45,193 +21,41 @@
 
 namespace onbody {
 
-template <class Body, bool kPaired>
-__global__ void exec_runs(const float* __restrict__ tgt_geo,
-                          const float* __restrict__ src_fm,
-                          float* __restrict__ out,
-                          const int* __restrict__ run_tgt,
-                          const int* __restrict__ run_off,
-                          const int* __restrict__ pair_s, int B, int C,
-                          int G, int od8) {
-  extern __shared__ float sm[];  // Body::kRows * B
-  const int run = blockIdx.x;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool act = i < B;
-  // K2 keys are parent ids q: the run covers rows 2q and 2q+1
-  const int64_t row0 =
-      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
-  typename Body::Tgt t0{}, t1{};
-  if (act) {
-    const float* g0 = tgt_geo + row0 * 8 * B + i;
-    t0 = Body::load_tgt(g0, B);
-    if (kPaired) t1 = Body::load_tgt(g0 + 8 * (int64_t)B, B);
-  }
-  float a0[Body::kOut], a1[Body::kOut];
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) a0[o] = a1[o] = 0.f;
-  const int p_end = run_off[run + 1];
-  for (int p = run_off[run]; p < p_end; ++p) {
-    for (int j = 0; j < G; ++j) {
-      const int s = pair_s[(int64_t)p * G + j];
-      if (s == 0) continue;  // uniform across the CTA
-      const float* src = src_fm + (int64_t)s * C * B;
-      __syncthreads();  // the previous block's readers are done
-      for (int k = threadIdx.x; k < B; k += blockDim.x) {
-        Body::stage(src + k, B, sm + k, B);
-      }
-      __syncthreads();
-      if (act) {
-        if (kPaired) {
-          block2<Body>(sm, B, B, t0, t1, a0, a1);
-        } else {
-          block<Body>(sm, B, B, t0, a0);
-        }
-      }
-    }
-  }
-  if (act) {
-    float* o0 = out + row0 * od8 * B + i;
-#pragma unroll
-    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += a0[o];
-    if (kPaired) {
-      float* o1 = o0 + (int64_t)od8 * B;
-#pragma unroll
-      for (int o = 0; o < Body::kOut; ++o) o1[o * B] += a1[o];
-    }
-  }
-}
-
-constexpr int kExecMaxThreads = 256;
-
-template <class Body, bool kPaired>
-int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
-                const int* run_tgt, const int* run_off, const int* pair_s,
-                int n_runs, int B, int C, int G, int od8, void* stream) {
-  if (n_runs <= 0) return (int)cudaSuccess;
-  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-  const dim3 grid(n_runs, (B + threads - 1) / threads);
-  const size_t smem = sizeof(float) * Body::kRows * B;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        exec_runs<Body, kPaired>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  exec_runs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------
-// Pre-gathered blocks staged per barrier pair: K12's staging (further
-// down), and K8/K9's before they were split into segments.
-
-constexpr int kPreStageBytes = 32 * 1024;
-
-// One step's first n gathered blocks (src, C rows of B floats each) summed
-// onto a0 (and a1), `stage` blocks staged per barrier pair, each block
-// into its own partial in slot order.
-template <class Body, bool kPaired>
-__device__ __forceinline__ void sum_gathered(
-    const float* __restrict__ src, int n, int B, int C, int stage,
-    float* sm, bool act, const typename Body::Tgt& t0,
-    const typename Body::Tgt& t1, float (&a0)[Body::kOut],
-    float (&a1)[Body::kOut]) {
-  const int sm_stride = stage * B;
-  for (int j0 = 0; j0 < n; j0 += stage) {  // n is uniform across the CTA
-    const int cnt = (n - j0) < stage ? (n - j0) : stage;
-    __syncthreads();  // the previous blocks' readers are done
-    for (int k = threadIdx.x; k < cnt * B; k += blockDim.x) {
-      const int j = k / B;
-      const int col = k - j * B;
-      Body::stage(src + (int64_t)(j0 + j) * C * B + col, B, sm + k,
-                  sm_stride);
-    }
-    __syncthreads();
-    if (act) {
-      for (int j = 0; j < cnt; ++j) {
-        if (kPaired) {
-          block2<Body>(sm + j * B, sm_stride, B, t0, t1, a0, a1);
-        } else {
-          block<Body>(sm + j * B, sm_stride, B, t0, a0);
-        }
-      }
-    }
-  }
-}
-
-// Blocks of B sources staged per barrier pair within kPreStageBytes.
-template <class Body>
-int pre_stage(int B, int G) {
-  const int stage = kPreStageBytes / ((int)sizeof(float) * Body::kRows * B);
-  return stage < 1 ? 1 : (stage > G ? G : stage);
-}
-
-// ---------------------------------------------------------------------
-// K8 (unpaired) and K9 (sibling-paired): the executors on PRE-GATHERED
-// sources, a segment kernel (exec_pre_segs) and an ordered reduction
-// (reduce_segs). Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre
-// with _body_pre (K8) and :_exec_chunk_pre_t2 with _body_pre_t2 (K9).
-//
-// A torch row gather (ops/cuda_pairs.py:_pregather) has laid step p's G
-// source blocks side by side at src_gathered + p*G*C*B, C rows of B
-// floats each. The TPU kernels walk that buffer in one sequential grid,
-// carrying a target row's sum in VMEM from step to step. Here the
-// wrapper cuts every run of equal target keys into SEGMENTS of at most
-// S consecutive steps (ops/cuda_pairs.py:_plan_segments; S is chosen so
-// that a chunk fills about two waves of CTAs, so a treecode leaf's run of
-// 27-77 steps no longer leaves the card to a few hundred CTAs). One CTA
-// per segment sums its steps' blocks in slot order into registers. A run
-// of one segment adds its sums onto its output row(s), as before; a
-// segment of a split run writes them as a partial row (kOut x B; two in
-// K9) into `partials`, a scratch the wrapper allocates per chunk (one
-// row, or two, per segment: bounded by the chunk, not by N). The
-// reduction then adds each split run's partials onto its output row(s)
-// in segment order. No atomics: the result depends on the list and S
-// only, never on the schedule, and a run cut by a chunk boundary
-// continues from the accumulator in the next launch. On runs of one
-// segment K8 gives K1's sums and K9 K2's, bit for bit (the same order).
-//
-// The kernels have no source ids, so they cannot see the inert pad row:
-// n_slots[p] (or G when the pointer is null) says how many leading slots
-// of step p to evaluate; the wrapper sets it to the last real slot, and a
-// skipped slot holds the inert row, whose contribution is exactly zero.
-// Pad steps are never part of a run, which is what keeps K9's rows 0 and
-// 1 (the root accumulator) untouched. Bodies read rows 0..kRows-1 of a
-// block of C rows, so the lean layout (C = kRows) and the layout padded
-// to 8 rows both work.
+// The CTA tile of K1/K2 and K8/K9.
 //
 // The pair loop (body.cuh block_aos): each thread owns kTgts = 2 target
-// points (the same point of rows 2q and 2q+1 in K9), which keeps a
-// target's sum and its block partial in registers without spills (4 per
-// thread measured slower, PERF.md). Every block is staged source by
-// source, its kRows values padded to whole float4s, so one or two 16-byte
-// broadcast loads bring a source, and it serves both targets: the 3D
-// bodies' loops issue 1 shared load per pair and vort2d's 0.5, against
-// 3-5 and 2.75 in block() (chip_smoke.py's SASS report). The staging is
-// asynchronous: every thread copies single floats with cp.async
-// (coalesced global reads, the transpose done by the copy) into a ring of
-// kPreStages blocks, so the next blocks arrive while the current one is
-// summed; a body whose staged rows differ rewrites them in place after
-// the copy lands (Body::staged). Three stages and cp.async measured
-// best against two or four stages and against bulk copies into a raw
-// ring transposed after they land (PERF.md). Tensor cores
-// are not used: the pair terms are elementwise fp32 with an rsqrt (or an
-// exp) per pair, no contraction TF32 or bf16 could take at the port's
-// 1e-5 parity. No warp-level code either, so the host emulation
-// (tests/test_torch_csrc_host.py) still checks these kernels.
+// points (K1/K8: points i and i + ceil(B/2) of the row; K2/K9: point i of
+// rows 2q and 2q+1), which keeps a target's sum and its block partial in
+// registers without spills (4 per thread measured slower, PERF.md). Every
+// block is staged source by source, its kRows values padded to whole
+// float4s, so one or two 16-byte broadcast loads bring a source, and it
+// serves both targets: the 3D bodies' loops issue 1 shared load per pair
+// and vort2d's 0.5, against 3-5 and 2.75 in block() (chip_smoke.py's SASS
+// report). The staging is asynchronous: every thread copies single floats
+// with cp.async (coalesced global reads, the transpose done by the copy,
+// no alignment needed) into a ring of kPreStages blocks, so the next
+// blocks arrive while the current one is summed; a body whose staged rows
+// differ rewrites them in place after the copy lands (Body::staged),
+// behind a barrier. Three stages and cp.async measured best against two
+// or four stages and against bulk copies into a raw ring transposed after
+// they land (PERF.md). Tensor cores are not used: the pair terms are
+// elementwise fp32 with an rsqrt (or an exp) per pair, no contraction
+// TF32 or bf16 could take at the port's 1e-5 parity. No warp-level code
+// either, so the host emulation (tests/test_torch_csrc_host.py) still
+// checks these kernels.
 //
-// What bounds it: per step G*B*B pairs (twice that in K9) against
-// G*C*B*4 gathered bytes read once, plus the gather pass outside that
-// wrote them, and the partial rows written and read back once; the
-// operations are the larger (PERF.md states both per instantiation).
-// Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
-// row*od8*B output offsets at 1e8 do not.
+// Each target sums a block into its own partial in source order, adds the
+// partials onto its register accumulator in block order and the
+// accumulator onto its output row once: block()'s order of sums, so K1
+// and K8 (and K2 and K9) give the same bits on the same blocks, and K1
+// gives K10's and K11's, which sum through block().
 
+constexpr int kExecMaxThreads = 256;
 constexpr int kPreStages = 3;  // blocks in flight per CTA
 
-// Targets per thread (kTgts), rows per run (kRowsT) and target points of
-// a row per thread (kPts) of K8/K9's segment kernel.
+// Targets per thread (kTgts), rows per tile (kRowsT) and target points of
+// a row per thread (kPts).
 template <class Body, bool kPaired>
 struct PreTile {
   static constexpr int kTgts = 2;
@@ -239,7 +63,19 @@ struct PreTile {
   static constexpr int kPts = kTgts / kRowsT;
 };
 
-// Starts the asynchronous copy of one gathered block (C rows of B floats
+// Threads per CTA, CTAs per tile (the grid's y: a row needs
+// ceil(B / kPts) threads, more than one CTA's above B = 512 in K1/K8 and
+// B = 256 in K2/K9) and dynamic shared memory (the ring) of a tile launch.
+template <class Body, bool kPaired>
+void tile_config(int B, int* threads, int* grid_y, size_t* smem) {
+  const int nthr = (B + PreTile<Body, kPaired>::kPts - 1) /
+                   PreTile<Body, kPaired>::kPts;
+  *threads = nthr < kExecMaxThreads ? nthr : kExecMaxThreads;
+  *grid_y = (nthr + *threads - 1) / *threads;
+  *smem = sizeof(float) * kPreStages * B * aos_floats<Body>();
+}
+
+// Starts the asynchronous copy of one source block (C rows of B floats
 // at blk, rows 0..kRows-1 used) into its staged layout at st: source q's
 // row r at st[q * aos_floats + r]. Every thread copies its share.
 template <class Body>
@@ -254,12 +90,20 @@ __device__ __forceinline__ void stage_block_async(
   }
 }
 
-// The walk over a segment's blocks, slot j of step p (steps in
-// [p, p_end), n_slots[p] or G slots each): next() moves to the next block
-// that exists, skipping steps without a slot.
-struct BlockCursor {
+// The walks over the blocks a tile sums, in slot order: settle() moves
+// onto the first block at or after the current slot, valid() says whether
+// one is left, next() moves past it, block() is its address. Every value
+// is uniform across the CTA.
+//
+// K8/K9: slots [0, n_slots[p]) (all G when n_slots is null) of the steps
+// [p, p_end) of a gathered buffer, step p's slot j at src + steps[p] *
+// step_floats + j * block_floats. A skipped slot holds the inert row.
+struct GatheredCursor {
   int p, j, p_end, G;
   const int* n_slots;
+  const int* steps;
+  const float* src;
+  int64_t step_floats, block_floats;
   __device__ int slots(int q) const { return n_slots ? n_slots[q] : G; }
   __device__ void settle() {
     while (p < p_end && j >= slots(p)) {
@@ -272,31 +116,52 @@ struct BlockCursor {
     ++j;
     settle();
   }
+  __device__ const float* block() const {
+    return src + steps[p] * step_floats + j * block_floats;
+  }
 };
 
-template <class Body, bool kPaired>
-__global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
-                              const float* __restrict__ src_gathered,
-                              float* __restrict__ out,
-                              float* __restrict__ partials,
-                              const int* __restrict__ run_tgt,
-                              const int* __restrict__ run_seg,
-                              const int* __restrict__ seg_run,
-                              const int* __restrict__ seg_off,
-                              const int* __restrict__ steps,
-                              const int* __restrict__ n_slots, int B, int C,
-                              int G, int od8) {
+// K1/K2: the slots [q, q_end) of a run in the (steps, G) id table (a run's
+// steps are contiguous in it), slot q's block at src + ids[q] *
+// block_floats; id 0, the inert row, is skipped.
+struct IdCursor {
+  int64_t q, q_end;
+  const int* ids;
+  const float* src;
+  int64_t block_floats;
+  int id;
+  __device__ void settle() {
+    for (; q < q_end; ++q) {
+      id = ids[q];
+      if (id != 0) return;
+    }
+  }
+  __device__ bool valid() const { return q < q_end; }
+  __device__ void next() {
+    ++q;
+    settle();
+  }
+  __device__ const float* block() const {
+    return src + (int64_t)id * block_floats;
+  }
+};
+
+// One CTA's share of a tile: thread i of the row's nthr = ceil(B / kPts)
+// owns points i + k * nthr (k < kPts) of each of the kRowsT rows from
+// row0. Every block rd walks is copied into the ring (`ring`, kPreStages
+// staged blocks) and summed by block_aos; then the sums are added onto
+// the output rows or, with `part`, written as partial rows, part[r][o][pt]
+// (kRowsT x kOut x B).
+template <class Body, bool kPaired, class Cursor>
+__device__ __forceinline__ void exec_tile(const float* __restrict__ tgt_geo,
+                                          float* __restrict__ out,
+                                          float* __restrict__ part,
+                                          int64_t row0, Cursor rd, int B,
+                                          int od8, float* ring) {
   using T = PreTile<Body, kPaired>;
   constexpr int kAos = aos_floats<Body>();
-  extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
-  const int seg = blockIdx.x;
-  const int run = seg_run[seg];
-  const bool whole = run_seg[run + 1] - run_seg[run] == 1;
-  // thread i owns points i + k * nthr (k < kPts) of each of its rows
   const int nthr = (B + T::kPts - 1) / T::kPts;
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const int64_t row0 =
-      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
   typename Body::Tgt t[T::kTgts];
   float acc[T::kTgts][Body::kOut];
 #pragma unroll
@@ -310,13 +175,8 @@ __global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
 #pragma unroll
     for (int o = 0; o < Body::kOut; ++o) acc[n][o] = 0.f;
   }
-  BlockCursor rd{seg_off[seg], 0, seg_off[seg + 1], G, n_slots};
   rd.settle();
-  BlockCursor wr = rd;
-  const int64_t step_floats = (int64_t)G * C * B;
-  auto block_at = [&](const BlockCursor& c) {
-    return src_gathered + steps[c.p] * step_floats + (int64_t)c.j * C * B;
-  };
+  Cursor wr = rd;
   // the staged block st: restage rows whose staged value differs, sum it
   auto consume = [&](float* st) {
     if (!Body::kRawStage) {
@@ -333,7 +193,7 @@ __global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
   };
   auto issue = [&](int f) {  // block f into stage f % kPreStages
     if (wr.valid()) {
-      stage_block_async<Body>(block_at(wr), B,
+      stage_block_async<Body>(wr.block(), B,
                               ring + (f % kPreStages) * B * kAos);
       wr.next();
     }
@@ -353,26 +213,155 @@ __global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
     const int pt = i + (n % T::kPts) * nthr;
     if (pt >= B) continue;
     const int r = n / T::kPts;
-    if (whole) {
+    if (part == nullptr) {
       float* o0 = out + (row0 + r) * od8 * B + pt;
 #pragma unroll
       for (int o = 0; o < Body::kOut; ++o) o0[o * B] += acc[n][o];
     } else {
-      float* p0 =
-          partials + ((int64_t)seg * T::kRowsT + r) * Body::kOut * B + pt;
+      float* p0 = part + (int64_t)r * Body::kOut * B + pt;
 #pragma unroll
       for (int o = 0; o < Body::kOut; ++o) p0[o * B] = acc[n][o];
     }
   }
 }
 
-// Threads and dynamic shared memory of a K8/K9 segment launch.
+// ---------------------------------------------------------------------
+// K1 (unpaired) and K2 (sibling-paired): the executors that fetch source
+// blocks by id, which pair_fetch "dma_i" (the DTT main path) runs, K2
+// also for "dma" and "dma_p". Replace onbody_tpu/ops/pallas_pairs.py:
+// _exec_chunk with _body_interleaved (K1) and :_exec_chunk_t2 with
+// _body_interleaved_t2 (K2).
+//
+// The TPU kernels walk the step list sequentially on one core, keep the
+// current target row resident in VMEM across a run of steps and hide the
+// scalar-issued source DMAs behind the MXU work. Hopper runs blocks in
+// parallel and in no order, so the sequential grid becomes one CTA per
+// RUN of equal target keys (the wrapper's run table): the CTA owns its
+// output row(s) outright, keeps the sums in registers and adds them onto
+// the rows once, with no atomics and a result fixed by the list alone. The
+// CTA is exec_tile over the run's slots in order, each block fetched by
+// its id (pair_s[p * G + j], the block at src_fm + id * C * B) into the
+// cp.async ring. Id 0 is the inert pad row and contributes exactly zero,
+// so the walk skips it; pad steps never form a run and are never visited
+// (in K2 this is what keeps rows 0 and 1, the root accumulator, untouched,
+// for every body). The copies are 4 bytes, so any B and any src_fm offset
+// work.
+//
+// What bounds it: a block of B sources staged once serves B targets (2B
+// in K2), so device-memory traffic is ~kRows * 4 / B bytes per pair and
+// the kernel is bound by the SM's FP32/MUFU rates over the operations each
+// pair needs (counted in the body's header; PERF.md gives the bound).
+// Against that the tile issues 1 shared load per pair (vort2d 0.5), keeps
+// two blocks in flight while it sums a third, and takes each id from a
+// load uniform across the CTA. Runs are not split over CTAs: the DTT's
+// runs of 1-4 steps give thousands of CTAs, several waves of the card
+// (chip_smoke.py prints the waves of its lists).
+
 template <class Body, bool kPaired>
-void seg_config(int B, int* threads, size_t* smem) {
-  const int nthr = (B + PreTile<Body, kPaired>::kPts - 1) /
-                   PreTile<Body, kPaired>::kPts;
-  *threads = nthr < kExecMaxThreads ? nthr : kExecMaxThreads;
-  *smem = sizeof(float) * kPreStages * B * aos_floats<Body>();
+__global__ void exec_runs(const float* __restrict__ tgt_geo,
+                          const float* __restrict__ src_fm,
+                          float* __restrict__ out,
+                          const int* __restrict__ run_tgt,
+                          const int* __restrict__ run_off,
+                          const int* __restrict__ pair_s, int B, int C,
+                          int G, int od8) {
+  extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
+  const int run = blockIdx.x;
+  // K2 keys are parent ids q: the run covers rows 2q and 2q+1
+  const int64_t row0 =
+      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
+  const IdCursor rd{(int64_t)run_off[run] * G, (int64_t)run_off[run + 1] * G,
+                    pair_s, src_fm, (int64_t)C * B, 0};
+  exec_tile<Body, kPaired>(tgt_geo, out, nullptr, row0, rd, B, od8, ring);
+}
+
+template <class Body, bool kPaired>
+int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
+                const int* run_tgt, const int* run_off, const int* pair_s,
+                int n_runs, int B, int C, int G, int od8, void* stream) {
+  if (n_runs <= 0) return (int)cudaSuccess;
+  int threads, grid_y;
+  size_t smem;
+  tile_config<Body, kPaired>(B, &threads, &grid_y, &smem);
+  const dim3 grid(n_runs, grid_y);
+  // always: an occupancy query at another B may have set a smaller limit
+  const cudaError_t err = cudaFuncSetAttribute(
+      exec_runs<Body, kPaired>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  exec_runs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// K8 (unpaired) and K9 (sibling-paired): the executors on PRE-GATHERED
+// sources, a segment kernel (exec_pre_segs) and an ordered reduction
+// (reduce_segs). Replace onbody_tpu/ops/pallas_pairs.py:_exec_chunk_pre
+// with _body_pre (K8) and :_exec_chunk_pre_t2 with _body_pre_t2 (K9).
+//
+// A torch row gather (ops/cuda_pairs.py:_pregather) has laid step p's G
+// source blocks side by side at src_gathered + p*G*C*B, C rows of B
+// floats each. The TPU kernels walk that buffer in one sequential grid,
+// carrying a target row's sum in VMEM from step to step. Here the
+// wrapper cuts every run of equal target keys into SEGMENTS of at most
+// S consecutive steps (ops/cuda_pairs.py:_plan_segments; S is chosen so
+// that a chunk fills about two waves of CTAs, so a treecode leaf's run of
+// 27-77 steps no longer leaves the card to a few hundred CTAs). One CTA
+// per segment (exec_tile) sums its steps' blocks in slot order into
+// registers. A run of one segment adds its sums onto its output row(s),
+// as K1/K2 do; a segment of a split run writes them as a partial row
+// (kOut x B; two in K9) into `partials`, a scratch the wrapper allocates
+// per chunk (one row, or two, per segment: bounded by the chunk, not by
+// N). The reduction then adds each split run's partials onto its output
+// row(s) in segment order. No atomics: the result depends on the list and
+// S only, never on the schedule, and a run cut by a chunk boundary
+// continues from the accumulator in the next launch. On runs of one
+// segment K8 gives K1's sums and K9 K2's, bit for bit (the same tile).
+//
+// The kernels have no source ids, so they cannot see the inert pad row:
+// n_slots[p] (or G when the pointer is null) says how many leading slots
+// of step p to evaluate; the wrapper sets it to the last real slot, and a
+// skipped slot holds the inert row, whose contribution is exactly zero.
+// Pad steps are never part of a run, which is what keeps K9's rows 0 and
+// 1 (the root accumulator) untouched. Bodies read rows 0..kRows-1 of a
+// block of C rows, so the lean layout (C = kRows) and the layout padded
+// to 8 rows both work.
+//
+// What bounds it: per step G*B*B pairs (twice that in K9) against
+// G*C*B*4 gathered bytes read once, plus the gather pass outside that
+// wrote them, and the partial rows written and read back once; the
+// operations are the larger (PERF.md states both per instantiation).
+// Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
+// row*od8*B output offsets at 1e8 do not.
+
+template <class Body, bool kPaired>
+__global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
+                              const float* __restrict__ src_gathered,
+                              float* __restrict__ out,
+                              float* __restrict__ partials,
+                              const int* __restrict__ run_tgt,
+                              const int* __restrict__ run_seg,
+                              const int* __restrict__ seg_run,
+                              const int* __restrict__ seg_off,
+                              const int* __restrict__ steps,
+                              const int* __restrict__ n_slots, int B, int C,
+                              int G, int od8) {
+  using T = PreTile<Body, kPaired>;
+  extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
+  const int seg = blockIdx.x;
+  const int run = seg_run[seg];
+  const bool whole = run_seg[run + 1] - run_seg[run] == 1;
+  const int64_t row0 =
+      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
+  const GatheredCursor rd{seg_off[seg], 0, seg_off[seg + 1], G, n_slots,
+                          steps, src_gathered, (int64_t)G * C * B,
+                          (int64_t)C * B};
+  exec_tile<Body, kPaired>(
+      tgt_geo, out,
+      whole ? nullptr
+            : partials + (int64_t)seg * T::kRowsT * Body::kOut * B,
+      row0, rd, B, od8, ring);
 }
 
 template <class Body, bool kPaired>
@@ -383,12 +372,10 @@ int launch_exec_pre_seg(const float* tgt_geo, const float* src_gathered,
                         const int* n_slots, int n_seg, int B, int C, int G,
                         int od8, void* stream) {
   if (n_seg <= 0) return (int)cudaSuccess;
-  int threads;
+  int threads, grid_y;
   size_t smem;
-  seg_config<Body, kPaired>(B, &threads, &smem);
-  const int nthr = (B + PreTile<Body, kPaired>::kPts - 1) /
-                   PreTile<Body, kPaired>::kPts;
-  const dim3 grid(n_seg, (nthr + threads - 1) / threads);
+  tile_config<Body, kPaired>(B, &threads, &grid_y, &smem);
+  const dim3 grid(n_seg, grid_y);
   // always: an occupancy query at another B may have set a smaller limit
   const cudaError_t err = cudaFuncSetAttribute(
       exec_pre_segs<Body, kPaired>,
@@ -470,12 +457,13 @@ int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
 //
 // The copies carry the fm rows as stored: a body whose staged rows differ
 // (a core term, vort2d's sr^2) rewrites them in place before the sums
-// (Body::staged, the function K1's stage applies). The blocks are then
-// summed in slot order through K1's block(), so on the same groups K10
-// and K11 give K1's result bit for bit.
+// (Body::staged, what the bodies' stage applies). The blocks are then
+// summed in slot order through block(), one target per thread, in the
+// order of sums K1's tile keeps, so on the same groups K10 and K11 give
+// K1's result bit for bit.
 //
-// Shared memory: K1 stages one block per barrier pair; the reference's
-// two banks of G blocks would take 160-224 KiB at B 256 / G 16. The ring
+// Shared memory: the reference's two banks of G blocks would take
+// 160-224 KiB at B 256 / G 16. The ring
 // is sized in stages from kFetchRingBytes (2..kFetchMaxStages stages), so
 // two or more CTAs stay resident per SM. A stage holds one block's kRows
 // rows (K11: C + kRows rows, a bundle's first block whole and the second
@@ -641,15 +629,52 @@ int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
 // grid step into per-step output rows, and the caller segment-adds the
 // rows into the accumulator. Here a CTA per step reads its target block
 // by row (a CTA can, so the targets are not gathered), sums the step's
-// gathered source blocks with K8's staging (sum_gathered), and writes its
-// own row (od8, B), the padding rows as zeros. No run table and no
-// aliasing: however long a target's run, its steps spread over the whole
-// card, which is what K1/K8's one CTA per run cannot do on long runs. The
+// gathered source blocks with plain loads, `stage` blocks per barrier
+// pair (sum_gathered), and writes its own row (od8, B), the padding rows
+// as zeros. No run table and no aliasing: however long a target's run, its
+// steps spread over the whole card, which is what K1's one CTA per run
+// cannot do on long runs. The
 // wrapper adds the rows into the accumulator with one index_add_ per
 // chunk. Pad steps are not launched (steps[] lists the real ones).
 //
 // What bounds it: the pairs' operations, as K8; the bytes add each
 // step's row, written once and read back by the segment add.
+
+constexpr int kPreStageBytes = 32 * 1024;
+
+// One step's first n gathered blocks (src, C rows of B floats each) summed
+// onto a0, `stage` blocks staged per barrier pair, each block into its own
+// partial in slot order.
+template <class Body>
+__device__ __forceinline__ void sum_gathered(
+    const float* __restrict__ src, int n, int B, int C, int stage,
+    float* sm, bool act, const typename Body::Tgt& t0,
+    float (&a0)[Body::kOut]) {
+  const int sm_stride = stage * B;
+  for (int j0 = 0; j0 < n; j0 += stage) {  // n is uniform across the CTA
+    const int cnt = (n - j0) < stage ? (n - j0) : stage;
+    __syncthreads();  // the previous blocks' readers are done
+    for (int k = threadIdx.x; k < cnt * B; k += blockDim.x) {
+      const int j = k / B;
+      const int col = k - j * B;
+      Body::stage(src + (int64_t)(j0 + j) * C * B + col, B, sm + k,
+                  sm_stride);
+    }
+    __syncthreads();
+    if (act) {
+      for (int j = 0; j < cnt; ++j) {
+        block<Body>(sm + j * B, sm_stride, B, t0, a0);
+      }
+    }
+  }
+}
+
+// Blocks of B sources staged per barrier pair within kPreStageBytes.
+template <class Body>
+int pre_stage(int B, int G) {
+  const int stage = kPreStageBytes / ((int)sizeof(float) * Body::kRows * B);
+  return stage < 1 ? 1 : (stage > G ? G : stage);
+}
 
 template <class Body>
 __global__ void exec_static_steps(const float* __restrict__ tgt_geo,
@@ -668,9 +693,9 @@ __global__ void exec_static_steps(const float* __restrict__ tgt_geo,
   float a0[Body::kOut];
 #pragma unroll
   for (int o = 0; o < Body::kOut; ++o) a0[o] = 0.f;
-  sum_gathered<Body, false>(src_gathered + (int64_t)steps[p] * G * C * B,
-                            n_slots ? n_slots[p] : G, B, C, stage, sm, act,
-                            t0, t0, a0, a0);
+  sum_gathered<Body>(src_gathered + (int64_t)steps[p] * G * C * B,
+                     n_slots ? n_slots[p] : G, B, C, stage, sm, act, t0,
+                     a0);
   if (act) {
     float* o0 = rows + (int64_t)p * od8 * B + i;
 #pragma unroll
@@ -732,24 +757,38 @@ int fetch_occupancy(int B, int C, int* info) {
                       smem, n_stages, info);
 }
 
-// occupancy_of a K8 (kPaired false) or K9 segment launch at B.
+// occupancy_of a tile launch at B: K1's or K2's exec_runs, or K8's or
+// K9's segment kernel (fn, the instantiation with the same kPaired).
 template <class Body, bool kPaired>
-int seg_occupancy(int B, int* info) {
-  int threads;
+int tile_occupancy(const void* fn, int B, int* info) {
+  int threads, grid_y;
   size_t smem;
-  seg_config<Body, kPaired>(B, &threads, &smem);
-  return occupancy_of((const void*)exec_pre_segs<Body, kPaired>, threads,
-                      smem, kPreStages, info);
+  tile_config<Body, kPaired>(B, &threads, &grid_y, &smem);
+  return occupancy_of(fn, threads, smem, kPreStages, info);
 }
 
-// occupancy_of K10 (kind 0), K11 (1), K12 (2), or the segment kernel of
-// K8 (3) or K9 (4) at (B, C, G).
+// occupancy_of K10 (kind 0), K11 (1), K12 (2), the segment kernel of K8
+// (3) or K9 (4), K1 (5) or K2 (6) at (B, C, G).
 template <class Body>
 int occupancy(int kind, int B, int C, int G, int* info) {
-  if (kind == 0) return fetch_occupancy<Body, false>(B, C, info);
-  if (kind == 1) return fetch_occupancy<Body, true>(B, C, info);
-  if (kind == 3) return seg_occupancy<Body, false>(B, info);
-  if (kind == 4) return seg_occupancy<Body, true>(B, info);
+  switch (kind) {
+    case 0:
+      return fetch_occupancy<Body, false>(B, C, info);
+    case 1:
+      return fetch_occupancy<Body, true>(B, C, info);
+    case 3:
+      return tile_occupancy<Body, false>(
+          (const void*)exec_pre_segs<Body, false>, B, info);
+    case 4:
+      return tile_occupancy<Body, true>(
+          (const void*)exec_pre_segs<Body, true>, B, info);
+    case 5:
+      return tile_occupancy<Body, false>((const void*)exec_runs<Body, false>,
+                                         B, info);
+    case 6:
+      return tile_occupancy<Body, true>((const void*)exec_runs<Body, true>,
+                                        B, info);
+  }
   const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
   const size_t smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
   return occupancy_of((const void*)exec_static_steps<Body>, threads, smem, 0,

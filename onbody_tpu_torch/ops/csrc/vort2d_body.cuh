@@ -23,7 +23,6 @@ struct Vort2d {
   static constexpr int kRows = 4;
   static constexpr int kOut = 2;
   static constexpr int kUnroll = 4;
-  static constexpr int kUnroll2 = 2;
 
   struct Tgt {
     float x, y, tr2;

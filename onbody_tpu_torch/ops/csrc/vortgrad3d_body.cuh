@@ -27,7 +27,6 @@ struct Vortgrad3d {
   static constexpr int kRows = 7;
   static constexpr int kOut = 12;
   static constexpr int kUnroll = 2;
-  static constexpr int kUnroll2 = 1;
 
   struct Tgt {
     float x, y, z;

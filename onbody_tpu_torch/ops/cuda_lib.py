@@ -52,7 +52,8 @@ KINDS = ("exec", "exec_t2", "direct", "direct_reduce", "exec_pre_seg",
 # kinds whose shared memory and residency `occupancy` reports, by the
 # code the C entry point takes (K4's "direct" has an entry of its own)
 OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2,
-                   "exec_pre_seg": 3, "exec_pre_t2_seg": 4}
+                   "exec_pre_seg": 3, "exec_pre_t2_seg": 4, "exec": 5,
+                   "exec_t2": 6}
 # K13's modes: entry points onbody_exec_ablate_<mode> and
 # onbody_occupancy_ablate_<mode>, grav3d only
 ABLATE_MODES = ("dma", "d2", "norsqrt", "full")
@@ -179,7 +180,7 @@ def lib() -> ctypes.CDLL:
 def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
     """Dynamic shared memory per CTA (bytes), resident CTAs per SM, ring
     stages, registers per thread and local (spill) bytes per thread of a
-    K10/K11/K12 or K8/K9 segment launch at (B, C, G) (a kind of
+    K1/K2, K10/K11/K12 or K8/K9 segment launch at (B, C, G) (a kind of
     OCCUPANCY_KINDS), or of a K4 launch (kind "direct"; B, C, G unused),
     from the CUDA occupancy calculator and the kernel's attributes. kind
     "ablate_<mode>" (inst "grav3d") reports K13's launch of that mode."""

@@ -1,5 +1,5 @@
 """Grouped pair executors: kernels K1/K2 (sources fetched by id with
-plain loads), K10/K11 (fetched by id with bulk asynchronous copies, K11
+cp.async), K10/K11 (fetched by id with bulk asynchronous copies, K11
 bundling adjacent ids), K8/K9 and K12 (sources pre-gathered contiguous
 per step) and their plain twins (port of onbody_tpu/ops/pallas_pairs.py),
 for every workload.
@@ -601,12 +601,17 @@ def exec_pairs_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     it, or with final=True the point-major (NN_t, B, OD) view.
 
     K1 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk with
-    _body_interleaved. It is bound by the SM's FP32/MUFU rates over the
-    operations each pair needs (counted in the body's header; PERF.md
-    has the bound):
-    one CTA per run of a target row keeps the row's sums in registers
-    and stages each source block in shared memory once for all B targets
-    (csrc/pairs.cuh)."""
+    _body_interleaved. A block of B sources staged once serves B
+    targets, so device memory carries ~kRows * 4 / B bytes a pair and K1
+    is bound by the SM's FP32/MUFU rates over the operations each pair
+    needs (counted in the body's header; PERF.md has the bound). Against
+    that: one CTA per run of a target row keeps the row's sums in
+    registers and adds them onto the row once (no atomics); each thread
+    owns two of the row's B targets, and every source, staged in whole
+    float4s, serves both, so a pair costs one shared load (vort2d 0.5);
+    the run's blocks, fetched by id with cp.async into a ring of three,
+    arrive while an earlier one is summed (csrc/pairs.cuh exec_tile, the
+    tile K8 runs; the same sums as K8, K10 and K11, bit for bit)."""
     return _exec_by_id("exec", kernel, tgt_geo, src_fm, group_t, group_s,
                        out_fm, final, core)
 
@@ -681,9 +686,10 @@ def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     out_fm and returns it; rows 0 and 1 are never written.
 
     K2 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_t2 with
-    _body_interleaved_t2. Same bound and design as K1; each staged
-    source block serves both sibling rows, halving source traffic and
-    shared-memory staging per pair."""
+    _body_interleaved_t2. K1's bound and design, with each thread owning
+    the same point of both sibling rows, so one staged block serves 2B
+    targets: half K1's source traffic and shared loads per pair (the
+    tile K9 runs, the same sums bit for bit)."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_torch_t2(kernel, tgt_geo, src_fm, group_t,
                                    group_s, out_fm, core)

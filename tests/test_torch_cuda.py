@@ -1,11 +1,11 @@
-"""The port's CUDA kernels on the card (K1, K2 pair executors; K8, K9
-the same on pre-gathered sources; K10, K11 fetching by bulk copies; K12
-one row per step; K13, K10 on the ablated grav3d bodies; K4 direct, its
-source splits and their reduction)
-against their plain twins and the fp64
-oracle, for every (workload, core) instantiation, and the slice on the
-card against the slice on the CPU for every workload and fetch. Every
-test needs a CUDA device and skips without one.
+"""The port's CUDA kernels on the card (K1, K2 pair executors, also at a
+ragged block width; K8, K9 the same on pre-gathered sources; K10, K11
+fetching by bulk copies; K12 one row per step; K13, K10 on the ablated
+grav3d bodies; K4 direct, its source splits and their reduction)
+against their plain twins and the fp64 oracle, for every (workload,
+core) instantiation, and the slice on the card against the slice on the
+CPU for every workload and fetch. Every test needs a CUDA device and
+skips without one.
 This file imports no jax, so on the GPU machine it runs without the
 reference package's conftest:
 
@@ -49,11 +49,11 @@ def _to(p: Parts, device) -> Parts:
                  s=None if p.s is None else p.s.to(device), n_real=p.n_real)
 
 
-def _blocks(dev, kernel=KER, nn=16, seed=0):
+def _blocks(dev, kernel=KER, nn=16, seed=0, b=B):
     g = torch.Generator().manual_seed(seed)
-    pos = torch.rand((nn, B, kernel.pd), generator=g)
-    rad = 0.03 + 0.04 * torch.rand((nn, B), generator=g)
-    s = torch.randn((nn, B, kernel.sd), generator=g) / B
+    pos = torch.rand((nn, b, kernel.pd), generator=g)
+    rad = 0.03 + 0.04 * torch.rand((nn, b), generator=g)
+    s = torch.randn((nn, b, kernel.sd), generator=g) / b
     pos[0], rad[0], s[0] = 0.0, 1.0, 0.0
     src_fm = cuda_pairs.build_fm_blocks(kernel, pos, rad, s).contiguous()
     tgt_geo = cuda_pairs.build_tgt_geo(pos, rad).contiguous()
@@ -111,6 +111,65 @@ def test_k2_matches_twin_and_keeps_root(dev, name, core):
     assert cuda_pairs.LAUNCHES[key] == before + 1
     assert scale_rel_max(out[2:].cpu(), twin[2:].cpu()) < 1e-4
     assert bool((out[1] == 7.25).all()) and not out[0].any()
+
+
+# an odd block width above 512: a row takes two CTAs in K1 (289 threads
+# of two points) and three in K2 (577 threads of one point on two rows)
+RAGGED_B = 577
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k1_k2_ragged_match_twins(dev, name, core):
+    """K1 and K2 at the ragged block width 577, with pad steps between
+    and after the runs and id-0 slots inside steps as well as at their
+    end: their twins within 1e-5 rel-RMS and 1e-4 max-rel, two launches
+    bit identical, rows without a run and K2's rows 0/1 untouched; the
+    occupancy report answers for both kinds at that width, with the ring
+    of three staged blocks and no spill."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel, seed=3, b=RAGGED_B)
+    inst = cuda_lib.instance(name, core)
+    od8 = cuda_pairs.od8(kernel)
+    aos = -(-cuda_pairs.FM_ROWS[name] // 4) * 4
+    for kind, gt_list in (("exec", [3, 3, 0, 5, 1, 1, 1, 0, 9, 0]),
+                          ("exec_t2", [1, 1, 2, 0, 3, 5, 0, 7])):
+        paired = kind == "exec_t2"
+        gt, gs = _groups(dev, gt_list, seed=4)
+        gs[1, 2] = 0
+        gs[4, 0:3] = 0
+        out0 = torch.zeros((16, od8, RAGGED_B), device=dev)
+        out0[1] = 7.25 if paired else 0.0
+        if paired:
+            run = cuda_pairs.exec_pairs_cuda_t2
+            twin = cuda_pairs.exec_pairs_torch_t2(kernel, tgt_geo, src_fm,
+                                                  gt, gs, out0.clone(),
+                                                  core=core)
+            rows = {2 * k + r for k in gt_list if k for r in (0, 1)}
+        else:
+            run = functools.partial(cuda_pairs.exec_pairs_cuda, final=False)
+            twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt,
+                                               gs, out0.clone(), final=False,
+                                               core=core)
+            rows = set(gt_list) - {0}
+        before = cuda_pairs.LAUNCHES[(kind, inst)]
+        outs = [run(kernel, tgt_geo, src_fm, gt, gs, out0.clone(),
+                    core=core) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert cuda_pairs.LAUNCHES[(kind, inst)] == before + 2
+        assert torch.equal(outs[0], outs[1]), kind
+        got = outs[0]
+        assert torch.isfinite(got).all()
+        lo = 2 if paired else 1
+        assert rel_rms(got[lo:].cpu(), twin[lo:].cpu()) <= 1e-5, kind
+        assert scale_rel_max(got[lo:].cpu(), twin[lo:].cpu()) <= 1e-4, kind
+        if paired:
+            assert bool((got[1] == 7.25).all())
+        untouched = [r for r in range(lo, 16) if r not in rows] + [0]
+        assert not got[torch.tensor(untouched, device=dev)].any(), kind
+        occ = cuda_lib.occupancy(kind, inst, RAGGED_B, src_fm.shape[1], 8)
+        assert occ["ctas_per_sm"] >= 1 and occ["stages"] == 3, occ
+        assert occ["smem"] == 3 * RAGGED_B * aos * 4, occ
+        assert occ["local_bytes"] == 0, occ
 
 
 @pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
