@@ -96,4 +96,54 @@ __device__ __forceinline__ void block_aos(const float* __restrict__ sm, int n,
   }
 }
 
+// The pair loop of K10/K11 (pairs.cuh exec_fetch_runs): the B sources of
+// a block as a bulk copy lands it, kRows rows of B floats (row r of
+// source q at sm[r * B + q]; B a multiple of 4, sm 16-byte aligned),
+// against kN targets. Rather than transpose the block into block_aos's
+// layout, each row is read where it lies: one broadcast float4 load per
+// row brings four whole sources, and each serves all kN targets, so the
+// shared loads per pair fall from kRows in block() to kRows / (4 * kN)
+// (kRows / 8 for the executors' two targets). Four sources a load spill
+// in no body, and two measured slower; the loop is unrolled twice, so
+// the next four sources' loads issue while these are summed (faster than
+// once, or than prefetching them by hand; PERF.md §6). Each target sums
+// the block into its own partial in source order and adds it onto acc
+// once: per target, block()'s order of sums, so K10 and K11 give K1's
+// bits.
+template <class Body, int kN>
+__device__ __forceinline__ void block_rows(const float* __restrict__ sm,
+                                           int B,
+                                           const typename Body::Tgt (&t)[kN],
+                                           float (&acc)[kN][Body::kOut]) {
+  float part[kN][Body::kOut];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) part[k][o] = 0.f;
+  }
+#pragma unroll 2
+  for (int q = 0; q < B; q += 4) {
+    float v[4][Body::kRows];  // v[c][r]: row r of source q + c
+#pragma unroll
+    for (int r = 0; r < Body::kRows; ++r) {
+      const float4 f = *reinterpret_cast<const float4*>(sm + r * B + q);
+      v[0][r] = f.x;
+      v[1][r] = f.y;
+      v[2][r] = f.z;
+      v[3][r] = f.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const typename Body::Src s = Body::load_src(v[c], 1);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) Body::pair(s, t[k], part[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[k][o] += part[k][o];
+  }
+}
+
 }  // namespace onbody

@@ -14,8 +14,9 @@
 //   AblateFull     sum m * (|d|^2 + sr^2)^(-3/2) * d  into rows 0-2;
 //   AblateNoRsqrt  sum m * (|d|^2 + sr^2) * d         into rows 0-2;
 //   AblateD2       sum |d|^2                           into row 0;
-//   AblateDma      no pair loop: each thread adds its own lane of rows
-//                  0-2 of every staged block into rows 0-2.
+//   AblateDma      no pair loop: each thread adds the lanes of its two
+//                  target points in rows 0-2 of every staged block into
+//                  rows 0-2.
 // The script's dma and d2 overwrite the output with prev + ... on every
 // step; here every mode is a sum over the run's steps, so kernel and twin
 // (cuda_pairs.exec_ablate_torch) have one exact meaning.
@@ -95,21 +96,27 @@ struct AblateD2 : AblateStage<false> {
   }
 };
 
-// no pair(): block<AblateDma> below replaces the pair loop
+// no pair(): block_rows<AblateDma, 2> below replaces the pair loop
 struct AblateDma : AblateStage<false> {
   static constexpr int kOut = 3;
 };
 
-// The dma mode's block: no pair loop, the thread's own lane of rows 0-2
-// of the staged block (the executors run lane i = blockIdx.y *
-// blockDim.x + threadIdx.x on target point i).
+// The dma mode's block: no pair loop, the lanes of the thread's own two
+// target points in rows 0-2 of the staged block (K10's thread i of a
+// row's B / 2 owns points i and i + B / 2, pairs.cuh exec_fetch_runs),
+// each into its point's sums.
 template <>
-__device__ __forceinline__ void block<AblateDma>(
-    const float* __restrict__ sm, int stride, int,
-    const AblateDma::Tgt&, float (&acc)[AblateDma::kOut]) {
+__device__ __forceinline__ void block_rows<AblateDma, 2>(
+    const float* __restrict__ sm, int B, const AblateDma::Tgt (&)[2],
+    float (&acc)[2][AblateDma::kOut]) {
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
 #pragma unroll
-  for (int o = 0; o < AblateDma::kOut; ++o) acc[o] += sm[o * stride + i];
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int o = 0; o < AblateDma::kOut; ++o) {
+      acc[j][o] += sm[o * B + i + j * (B / 2)];
+    }
+  }
 }
 
 }  // namespace onbody

@@ -49,7 +49,8 @@ namespace onbody {
 // partials onto its register accumulator in block order and the
 // accumulator onto its output row once: block()'s order of sums, so K1
 // and K8 (and K2 and K9) give the same bits on the same blocks, and K1
-// gives K10's and K11's, which sum through block().
+// gives K10's and K11's, which keep that order on the rows their bulk
+// copies land (block_rows).
 
 constexpr int kExecMaxThreads = 256;
 constexpr int kPreStages = 3;  // blocks in flight per CTA
@@ -443,39 +444,41 @@ int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
 // The TPU kernels start a step's G source DMAs together and double-buffer
 // them by step; K11 fetches two adjacent ids (a, a+1) with one 2-block
 // DMA. Here the CTA keeps K1's design (one CTA per run of a target row,
-// the sums in registers, one write per run, no atomics) and changes the
-// fetch: one thread walks the run's slots and starts one 1D bulk copy per
-// block (K11: per bundle of two adjacent blocks, which are contiguous in
-// src_fm) into a ring of shared-memory stages, each completing on its own
-// mbarrier (async_copy.cuh). While the CTA sums one stage, the copies of
-// the next n_stages - 1 are in flight. Id 0, the inert row, starts no
-// copy and takes no stage, so the k-th copy of a run always uses stage
-// k % n_stages with parity (k / n_stages) & 1, however the slots are
-// skipped; every copy started is waited on exactly once, because the
-// readers and the issuing thread walk the same slot sequence with the
-// same planner (copy_blocks).
+// each thread owning two of its points, i and i + B/2, the sums in
+// registers, one write per run, no atomics) and changes the fetch: one
+// thread walks the run's slots and starts one 1D bulk copy per block
+// (K11: per bundle of two adjacent blocks, which are contiguous in
+// src_fm) into a ring of kPreStages shared-memory stages, K1's depth,
+// each completing on its own mbarrier (async_copy.cuh). While the CTA
+// sums one stage, the copies of the next two are in flight. Id 0, the
+// inert row, starts no copy and takes no stage, so the k-th copy of a run
+// always uses stage k % kPreStages with parity (k / kPreStages) & 1,
+// however the slots are skipped; every copy started is waited on exactly
+// once, because the readers and the issuing thread walk the same slot
+// sequence with the same planner (copy_blocks).
 //
-// The copies carry the fm rows as stored: a body whose staged rows differ
-// (a core term, vort2d's sr^2) rewrites them in place before the sums
-// (Body::staged, what the bodies' stage applies). The blocks are then
-// summed in slot order through block(), one target per thread, in the
-// order of sums K1's tile keeps, so on the same groups K10 and K11 give
-// K1's result bit for bit.
+// A copy lands a block as stored, kRows rows of B floats: a body whose
+// staged rows differ (a core term, vort2d's sr^2) rewrites them in place
+// behind a barrier before the sums (Body::staged, what the bodies' stage
+// applies). block_rows (body.cuh) then reads the rows where they lie,
+// one broadcast load of four consecutive sources per row, each source
+// serving the thread's two targets: kRows / 8 shared loads a pair (3 to 5
+// in block(), K1's 1 from its transposed float4 layout). Each block is
+// summed into its own partials in source order, in slot order, so on the
+// same groups K10 and K11 give K1's result bit for bit.
 //
 // Shared memory: the reference's two banks of G blocks would take
-// 160-224 KiB at B 256 / G 16. The ring
-// is sized in stages from kFetchRingBytes (2..kFetchMaxStages stages), so
-// two or more CTAs stay resident per SM. A stage holds one block's kRows
-// rows (K11: C + kRows rows, a bundle's first block whole and the second
-// one's used rows). Bulk copies need 16-byte aligned addresses and sizes:
-// the wrapper raises unless B is a multiple of 4 and src_fm is aligned.
+// 160-224 KiB at B 256 / G 16. A stage holds one block's kRows rows (K11:
+// C + kRows rows, a bundle's first block whole and the second one's used
+// rows), 12-45 KiB in three stages at B 256, and a CTA has B/2 threads
+// (at most kExecMaxThreads), so several CTAs stay resident per SM
+// (chip_smoke.py prints how many). Bulk copies need 16-byte aligned
+// addresses and sizes: the wrapper raises unless B is a multiple of 4 and
+// src_fm is aligned, which also aligns block_rows' loads.
 //
 // What bounds it: as K1, the FP32/MUFU operations of the pairs; the
 // copies take the loads off the SM's load pipe and the barrier pair per
 // block becomes a wait plus one release barrier (two with a restage).
-
-constexpr int kFetchMaxStages = 8;
-constexpr int kFetchRingBytes = 64 * 1024;
 
 // K11's bundle planner (reference pallas_pairs.py:_body_pair, its greedy
 // head/consumed scan :316-330), one slot at a time: the blocks fetched by
@@ -515,18 +518,26 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
                                 const int* __restrict__ run_tgt,
                                 const int* __restrict__ run_off,
                                 const int* __restrict__ pair_s, int B, int C,
-                                int G, int od8, int n_stages) {
-  extern __shared__ __align__(16) float ring[];  // n_stages stages
-  __shared__ uint64_t bar[kFetchMaxStages];
+                                int G, int od8) {
+  constexpr int kTgts = 2;
+  extern __shared__ __align__(16) float ring[];  // kPreStages stages
+  __shared__ uint64_t bar[kPreStages];
   const int run = blockIdx.x;
+  // thread i of the row's B / 2 (B is a multiple of 4) owns points i and
+  // i + B / 2
+  const int nthr = B / kTgts;
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool act = i < B;
+  const bool act = i < nthr;
   const int64_t row0 = run_tgt[run];
-  typename Body::Tgt t0{};
-  if (act) t0 = Body::load_tgt(tgt_geo + row0 * 8 * B + i, B);
-  float a0[Body::kOut];
+  typename Body::Tgt t[kTgts];
+  float acc[kTgts][Body::kOut];
 #pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) a0[o] = 0.f;
+  for (int j = 0; j < kTgts; ++j) {
+    t[j] = typename Body::Tgt{};
+    if (act) t[j] = Body::load_tgt(tgt_geo + row0 * 8 * B + i + j * nthr, B);
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[j][o] = 0.f;
+  }
   const int* ids = pair_s + (int64_t)run_off[run] * G;
   const int n = (run_off[run + 1] - run_off[run]) * G;
   const int stage_floats = fetch_stage_rows<Body, kBundle>(C) * B;
@@ -536,7 +547,7 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
   auto issue = [&]() {
     const int k = next_copy<kBundle>(ids, n, G, q_issue);
     if (k == 0) return;
-    const int s = issued % n_stages;
+    const int s = issued % kPreStages;
     const uint32_t bytes =
         (uint32_t)sizeof(float) * (k == 2 ? C + Body::kRows : Body::kRows) *
         B;
@@ -547,8 +558,8 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
     ++issued;
   };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < n_stages; ++s) mbar_init(bar + s, 1);
-    for (int s = 0; s < n_stages; ++s) issue();
+    for (int s = 0; s < kPreStages; ++s) mbar_init(bar + s, 1);
+    for (int s = 0; s < kPreStages; ++s) issue();
   }
   __syncthreads();  // the barriers are initialised
 
@@ -556,8 +567,8 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
   for (int f = 0;; ++f) {
     const int k = next_copy<kBundle>(ids, n, G, q);  // uniform
     if (k == 0) break;
-    float* blk = ring + (f % n_stages) * stage_floats;
-    mbar_wait(bar + f % n_stages, (f / n_stages) & 1);
+    float* blk = ring + (f % kPreStages) * stage_floats;
+    mbar_wait(bar + f % kPreStages, (f / kPreStages) & 1);
     if (!Body::kRawStage) {
       for (int c = threadIdx.x; c < k * B; c += blockDim.x) {
         float* col = blk + (c / B) * C * B + c % B;
@@ -569,8 +580,8 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
       __syncthreads();
     }
     if (act) {
-      block<Body>(blk, B, B, t0, a0);
-      if (k == 2) block<Body>(blk + C * B, B, B, t0, a0);
+      block_rows<Body, kTgts>(blk, B, t, acc);
+      if (k == 2) block_rows<Body, kTgts>(blk + C * B, B, t, acc);
     }
     __syncthreads();  // the stage is read: it may be refilled
     if (threadIdx.x == 0) {
@@ -579,22 +590,25 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
     }
     q += k;
   }
-  if (act) {
-    float* o0 = out + row0 * od8 * B + i;
+  if (!act) return;
 #pragma unroll
-    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += a0[o];
+  for (int j = 0; j < kTgts; ++j) {
+    float* o0 = out + row0 * od8 * B + i + j * nthr;
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += acc[j][o];
   }
 }
 
-// Threads, stages and dynamic shared memory of a K10/K11 launch.
+// Threads, CTAs per row (the grid's y: a row needs B / 2 threads, more
+// than one CTA's above B = 512) and dynamic shared memory (the ring) of a
+// K10/K11 launch.
 template <class Body, bool kBundle>
-void fetch_config(int B, int C, int* threads, int* n_stages, size_t* smem) {
-  *threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-  const int stage_bytes =
-      (int)sizeof(float) * fetch_stage_rows<Body, kBundle>(C) * B;
-  int ns = kFetchRingBytes / stage_bytes;
-  *n_stages = ns < 2 ? 2 : (ns > kFetchMaxStages ? kFetchMaxStages : ns);
-  *smem = (size_t)*n_stages * stage_bytes;
+void fetch_config(int B, int C, int* threads, int* grid_y, size_t* smem) {
+  const int nthr = B / 2;
+  *threads = nthr < kExecMaxThreads ? nthr : kExecMaxThreads;
+  *grid_y = (nthr + *threads - 1) / *threads;
+  *smem = sizeof(float) * kPreStages * fetch_stage_rows<Body, kBundle>(C) *
+          B;
 }
 
 template <class Body, bool kBundle>
@@ -603,20 +617,18 @@ int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
                       const int* pair_s, int n_runs, int B, int C, int G,
                       int od8, void* stream) {
   if (n_runs <= 0) return (int)cudaSuccess;
-  int threads, n_stages;
+  int threads, grid_y;
   size_t smem;
-  fetch_config<Body, kBundle>(B, C, &threads, &n_stages, &smem);
-  const dim3 grid(n_runs, (B + threads - 1) / threads);
-  // always: the barriers' static shared memory counts against the 48 KiB
-  // a launch gets without the attribute
+  fetch_config<Body, kBundle>(B, C, &threads, &grid_y, &smem);
+  const dim3 grid(n_runs, grid_y);
+  // always: an occupancy query at another B may have set a smaller limit
   const cudaError_t err = cudaFuncSetAttribute(
       exec_fetch_runs<Body, kBundle>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   exec_fetch_runs<Body, kBundle><<<grid, threads, smem,
                                    (cudaStream_t)stream>>>(
-      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8,
-      n_stages);
+      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8);
   return (int)cudaGetLastError();
 }
 
@@ -750,11 +762,11 @@ inline int occupancy_of(const void* fn, int threads, size_t smem,
 // occupancy_of a K10 (kBundle false) or K11 launch at (B, C).
 template <class Body, bool kBundle>
 int fetch_occupancy(int B, int C, int* info) {
-  int threads, n_stages;
+  int threads, grid_y;
   size_t smem;
-  fetch_config<Body, kBundle>(B, C, &threads, &n_stages, &smem);
+  fetch_config<Body, kBundle>(B, C, &threads, &grid_y, &smem);
   return occupancy_of((const void*)exec_fetch_runs<Body, kBundle>, threads,
-                      smem, n_stages, info);
+                      smem, kPreStages, info);
 }
 
 // occupancy_of a tile launch at B: K1's or K2's exec_runs, or K8's or

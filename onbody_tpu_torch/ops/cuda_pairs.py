@@ -638,12 +638,14 @@ def exec_pairs_dma_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     of 4 (the copies need 16-byte alignment).
 
     K10 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk with _body
-    (pair_fetch 'dma'). K1's design, one CTA per run of a target row;
-    one thread copies the run's blocks into a ring of shared-memory
-    stages ahead of the sums, each copy completing on its own mbarrier,
-    and the inert id 0 starts no copy (csrc/pairs.cuh). Bound by the
-    pairs' operations, as K1; on the same groups it gives K1's result
-    bit for bit."""
+    (pair_fetch 'dma'). K1's design, one CTA per run of a target row,
+    two targets per thread; one thread copies the run's blocks into a
+    ring of three shared-memory stages ahead of the sums, each copy
+    completing on its own mbarrier, and the inert id 0 starts no copy;
+    the pair loop reads the copied rows where they land, four sources a
+    load (csrc/pairs.cuh exec_fetch_runs, body.cuh block_rows). Bound by
+    the pairs' operations, as K1; on the same groups it gives K1's
+    result bit for bit."""
     return _exec_by_id("exec_dma", kernel, tgt_geo, src_fm, group_t,
                        group_s, out_fm, final, core)
 

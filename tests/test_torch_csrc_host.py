@@ -637,26 +637,65 @@ def test_host_bundle_planner_matches_reference_scan(host_lib):
                                                (4, 1), (5, 1)]
 
 
+# K11's bundles at the edges of a step (G 8): (7, 8) in the last two
+# slots; the triple 5, 6, 7 (the bundle (5, 6), then 7) beside an inert
+# slot and (14, 15) at the end; 10 in the last slot and 11 in the next
+# step's first, which must not bundle across the steps
+EDGE_BUNDLES = [[2, 9, 4, 11, 6, 13, 7, 8], [9, 5, 6, 7, 12, 0, 14, 15],
+                [1, 3, 8, 12, 0, 2, 5, 10], [11, 4, 13, 9, 3, 0, 0, 0]]
+
+
+def _fetch_case(case):
+    """(B, group_t, group_s) of a K10/K11 case: the adjacency cases at
+    B 32; at B 36, a multiple of 4 (as bulk copies need) but not of 8,
+    so a row's 18 threads are not a whole warp; at B 516, above 512, so a
+    row takes two CTAs (256 threads and 2); one run of 6 steps of
+    distinct ids, 48 copies that wrap the 3-stage ring 16 times; and the
+    bundles at the edges of a step."""
+    if case == "wrap":
+        gt = torch.tensor([0, 7, 7, 7, 7, 7, 7, 0, 2])
+        gs = torch.arange(1, 9).repeat(9, 1)
+        gs[1::2] += 7
+        gs[gt == 0] = 0
+        return 32, gt, gs
+    if case == "edges":
+        gt = torch.tensor([3, 3, 3, 3, 0, 5, 5, 0])
+        gs = torch.tensor([EDGE_BUNDLES[i % 4] for i in range(8)])
+        gs[gt == 0] = 0
+        return 32, gt, gs
+    b, gt_list = {"b32": (32, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0]),
+                  "b36": (36, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0]),
+                  "b516": (516, [5, 0])}[case]
+    return (b,) + _adjacent_groups(gt_list)
+
+
+@pytest.mark.parametrize("case", ["b32", "b36", "b516", "wrap", "edges"])
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_host_k10_k11_equal_k1(host_lib, name, core):
-    """K10 and K11 on lists with pads between and after the runs and the
-    adjacency cases in every step: K1's result exactly (the same blocks
-    summed in the same order), rows without a run untouched."""
+def test_host_k10_k11_equal_k1(host_lib, name, core, case):
+    """K10 and K11 on lists with pads between and after the runs (the
+    cases of _fetch_case): K1's result exactly (the same blocks summed in
+    the same order), its twin's within the kernel limits, rows without a
+    run untouched."""
     kernel = get_kernel(name)
-    src_fm, tgt_geo = _blocks(kernel, seed=13)
-    gt, gs = _adjacent_groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
-    k1 = torch.zeros((16, cuda_pairs.od8(kernel), 32))
+    b, gt, gs = _fetch_case(case)
+    src_fm, tgt_geo = _blocks(kernel, b=b, seed=13)
+    k1 = torch.zeros((16, cuda_pairs.od8(kernel), b))
     assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, src_fm, gt,
                      gs, k1) == 0
     twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
                                        final=False, core=core)
     rms, mx = _errors(k1, twin)
     assert rms <= REL_RMS and mx <= MAX_REL
+    if case == "edges":
+        assert cuda_pairs.bundled_blocks(gs) == 10   # 5 bundles
     for kind in ("exec_dma", "exec_dmap"):
         out = torch.zeros_like(k1)
         assert _run_exec(host_lib, kind, kernel, core, tgt_geo, src_fm, gt,
                          gs, out) == 0
         assert torch.equal(out, k1), kind
+    keys = set(gt.tolist())
+    assert not k1[torch.tensor([r for r in range(16)
+                                if r not in keys])].any()
 
 
 @pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
@@ -714,21 +753,27 @@ def _run_ablate(lib, mode, tgt_geo, src_fm, gt, gs, out):
         run_tgt.numel(), b, c, pair_s.shape[1], out.shape[1], None)
 
 
-def _ablate_rows(seed):
-    """exp_kernel's rows (uniform [0, 1), row 3 read as sr) at B 32."""
+def _ablate_rows(seed, b=32):
+    """exp_kernel's rows (uniform [0, 1), row 3 read as sr) at B b."""
     g = torch.Generator().manual_seed(seed)
-    return (torch.rand((16, 8, 32), generator=g),
-            torch.rand((16, 8, 32), generator=g))
+    return (torch.rand((16, 8, b), generator=g),
+            torch.rand((16, 8, b), generator=g))
 
 
+# K13's widths: K10's at B 32, a row's 18 threads at B 36, two CTAs of a
+# row at B 516 (the dma mode's lanes are the two points each thread owns)
+ABLATE_B = [32, 36, 516]
+
+
+@pytest.mark.parametrize("b", ABLATE_B)
 @pytest.mark.parametrize("mode", cuda_lib.ABLATE_MODES)
-def test_host_k13_matches_twin(host_lib, mode):
+def test_host_k13_matches_twin(host_lib, mode, b):
     """K13 in each mode on a list with pads between and after the runs
     and inert slots: its twin within the kernel limits, rows without a
     run untouched, the rows beyond the mode's outputs zero."""
-    tgt_geo, src_fm = _ablate_rows(16)
+    tgt_geo, src_fm = _ablate_rows(16, b)
     gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0], seed=17)
-    out = torch.zeros((16, 8, 32))
+    out = torch.zeros((16, 8, b))
     assert _run_ablate(host_lib, mode, tgt_geo, src_fm, gt, gs, out) == 0
     twin = cuda_pairs.exec_ablate_torch(mode, tgt_geo, src_fm, gt, gs)
     assert torch.isfinite(out).all()
@@ -738,13 +783,14 @@ def test_host_k13_matches_twin(host_lib, mode):
     assert not out[:, 1 if mode == "d2" else 3:].any()
 
 
-def test_host_k13_full_is_k10_on_squared_rows(host_lib):
+@pytest.mark.parametrize("b", ABLATE_B)
+def test_host_k13_full_is_k10_on_squared_rows(host_lib, b):
     """'full' squares row 3 once per source as it stages the block; on
     rows that store sr^2 there, as the production rows do, K10 with the
     grav3d body gives the same result bit for bit."""
-    tgt_geo, src_fm = _ablate_rows(18)
+    tgt_geo, src_fm = _ablate_rows(18, b)
     gt, gs = _adjacent_groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
-    full = torch.zeros((16, 8, 32))
+    full = torch.zeros((16, 8, b))
     assert _run_ablate(host_lib, "full", tgt_geo, src_fm, gt, gs, full) == 0
     squared = src_fm.clone()
     squared[:, 3] = src_fm[:, 3] * src_fm[:, 3]

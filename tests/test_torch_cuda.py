@@ -554,13 +554,20 @@ def _adjacent_groups(dev, gt_list):
     return gt.to(dev), gs.to(dev)
 
 
+# K10/K11's block widths: the main tests' B; 36, a multiple of 4 (as bulk
+# copies need) whose 18 threads a row are not a whole warp; 516, above
+# 512, where a row takes two CTAs (256 threads and 2)
+FETCH_B = [B, 36, 516]
+
+
+@pytest.mark.parametrize("b", FETCH_B)
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_k10_k11_equal_k1_and_match_twin(dev, name, core):
+def test_k10_k11_equal_k1_and_match_twin(dev, name, core, b):
     """K10 and K11 on runs of 1-3 steps with pads between and after them
     and the adjacency cases in every step: K1's result bit for bit, its
     twin's within the kernel limit, one launch each."""
     kernel = get_kernel(name)
-    src_fm, tgt_geo = _blocks(dev, kernel)
+    src_fm, tgt_geo = _blocks(dev, kernel, b=b)
     gt, gs = _adjacent_groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
     inst = cuda_lib.instance(name, core)
     k1 = cuda_pairs.exec_pairs_cuda(kernel, tgt_geo, src_fm, gt, gs,
@@ -575,10 +582,34 @@ def test_k10_k11_equal_k1_and_match_twin(dev, name, core):
         assert cuda_pairs.LAUNCHES[(kind, inst)] == before + 1
         assert torch.equal(out, k1), kind
         assert scale_rel_max(out[1:].cpu(), twin[1:].cpu()) < 1e-4
-    occ = {k: cuda_lib.occupancy(k, inst, B, src_fm.shape[1], 8)
+    occ = {k: cuda_lib.occupancy(k, inst, b, src_fm.shape[1], 8)
            for k in cuda_lib.OCCUPANCY_KINDS}
     assert all(o["ctas_per_sm"] >= 1 and o["smem"] > 0
                for o in occ.values()), occ
+
+
+@pytest.mark.parametrize("kind", ["exec_dma", "exec_dmap"])
+def test_k10_k11_launch_after_smaller_occupancy_query(dev, kind):
+    """An occupancy query at B 32 sets the kernel's shared-memory limit to
+    that B's ring; a launch at B 516 (K11's ring above the 48 KiB a launch
+    gets without the attribute) then sets its own and gives K1's
+    result."""
+    src_fm, tgt_geo = _blocks(dev, b=516)
+    gt, gs = _adjacent_groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])
+    c = src_fm.shape[1]
+    small = cuda_lib.occupancy(kind, "grav3d", 32, c, 8)
+    big = cuda_lib.occupancy(kind, "grav3d", 516, c, 8)
+    small = cuda_lib.occupancy(kind, "grav3d", 32, c, 8)
+    assert small["smem"] < big["smem"]
+    fn = {"exec_dma": cuda_pairs.exec_pairs_dma_cuda,
+          "exec_dmap": cuda_pairs.exec_pairs_dmap_cuda}[kind]
+    before = cuda_pairs.LAUNCHES[(kind, "grav3d")]
+    got = fn(KER, tgt_geo, src_fm, gt, gs, final=False)
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[(kind, "grav3d")] == before + 1
+    k1 = cuda_pairs.exec_pairs_cuda(KER, tgt_geo, src_fm, gt, gs,
+                                    final=False)
+    assert torch.equal(got, k1)
 
 
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)

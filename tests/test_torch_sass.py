@@ -186,3 +186,22 @@ def test_ablate_bound_is_bytes_for_dma():
     assert t == pytest.approx(1e12 * 10 / (132 * 128 * 2e9))
     assert cs.bound_s(1e12, "ablate_full", 2e9) == cs.bound_s(1e12,
                                                               "grav3d", 2e9)
+
+
+def test_kernel_sass_compares_code_not_label_numbers():
+    """--parent's gate applies where the parent's compiled kernel differs:
+    the same instructions compare equal under other label numbers (a
+    listing numbers them across the whole library), another instruction
+    does not."""
+    same = cs._kernel_sass(LISTING, "direct", "vort2d")
+    renumbered = LISTING.replace(".L_x_3", ".L_x_13").replace(".L_x_4",
+                                                              ".L_x_7")
+    assert cs._kernel_sass(renumbered, "direct", "vort2d") == same
+    assert [op for op, _ in same] == ["MOV", "FADD", "MUFU.RCP", "FFMA",
+                                      "FMUL", "BRA", "BRA", "EXIT"]
+    other = LISTING.replace("FMUL R7, R6, R5", "FADD R7, R6, R5")
+    assert cs._kernel_sass(other, "direct", "vort2d") != same
+    assert cs._kernel_sass(other, "exec", "grav3d") == cs._kernel_sass(
+        LISTING, "exec", "grav3d")
+    with pytest.raises(LookupError):
+        cs._kernel_sass(LISTING, "exec_t2", "grav3d")
