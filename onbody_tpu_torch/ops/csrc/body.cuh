@@ -2,18 +2,16 @@
 //
 // A body (grav3d_body.cuh, vort2d_body.cuh, vort3d_body.cuh,
 // vortgrad3d_body.cuh) is a struct that provides
-//   kRows            rows of a source block it stages in shared memory;
+//   kRows            rows of a source block it stages in shared memory
+//                    (the reference's lean feature-major rows,
+//                    ops/kernels.py featurize);
 //   kOut             outputs per target (the workload's OD);
-//   kUnroll          unroll of block();
 //   Tgt load_tgt(g, stride)  a target from a feature-major column
 //                    [pos | radius] whose rows lie `stride` floats apart;
 //   staged(r, v)     the staged value of fm row r, with any per-source
 //                    term of the core precomputed; kRawStage when it is
 //                    v for every row;
-//   stage(col, stride, sm, sm_stride)  one source point: reads the
-//                    reference's lean feature-major rows (ops/kernels.py
-//                    featurize) at `col` and writes its kRows staged rows;
-//   Src load_src(sm, stride)  one staged source from shared memory;
+//   Src load_src(v, stride)  one staged source, its rows `stride` apart;
 //   pair(src, tgt, acc)  adds the pair's contribution into acc[kOut].
 // Everything is fp32 FMA work per pair (no factored moments): there is
 // no precision tier to choose, and every sum is a plain fp32 sum.
@@ -25,26 +23,6 @@
 
 namespace onbody {
 
-// Sum of the first n staged sources on one target. The block's sum is kept
-// in a local partial and added onto `acc` once, so long runs are summed
-// two-level (within a block, then across blocks) rather than in one long
-// fp32 chain.
-template <class Body>
-__device__ __forceinline__ void block(const float* __restrict__ sm,
-                                      int stride, int n,
-                                      const typename Body::Tgt& t,
-                                      float (&acc)[Body::kOut]) {
-  float part[Body::kOut];
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) part[o] = 0.f;
-#pragma unroll (Body::kUnroll)
-  for (int q = 0; q < n; ++q) {
-    Body::pair(Body::load_src(sm + q, stride), t, part);
-  }
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) acc[o] += part[o];
-}
-
 // Floats a source takes in the staged layout of the K1/K2 and K8/K9 tile
 // (pairs.cuh exec_tile): its kRows values side by side, padded to whole
 // float4s.
@@ -53,15 +31,16 @@ __host__ __device__ constexpr int aos_floats() {
   return (Body::kRows + 3) / 4 * 4;
 }
 
-// The pair loop of K1/K2, K8/K9 and K4: the first n sources of a block
-// staged source by source (aos_floats<Body>() each, 16-byte aligned)
+// The pair loop of K1/K2, K8/K9, K12 and K4: the first n sources of a
+// block staged source by source (aos_floats<Body>() each, 16-byte aligned)
 // against kN targets.
 // One source is brought in by one 16-byte broadcast load per four rows
 // (one for vort2d's 4 rows, two for the 5 and 7 of the 3D bodies) and
 // serves all kN targets, so the shared loads per pair fall from kRows to
 // (kRows / 4 rounded up) / kN. Each target sums the block into its own
-// partial in source order and adds it onto acc once: per target, block()'s
-// order of sums.
+// partial in source order and adds it onto acc once, so long runs are
+// summed two-level (within a block, then across blocks) rather than in
+// one long fp32 chain: the executors' order of sums.
 template <class Body, int kN>
 __device__ __forceinline__ void block_aos(const float* __restrict__ sm, int n,
                                           const typename Body::Tgt (&t)[kN],
@@ -96,20 +75,19 @@ __device__ __forceinline__ void block_aos(const float* __restrict__ sm, int n,
   }
 }
 
-// The pair loop of K10/K11 (pairs.cuh exec_fetch_runs): the B sources of
-// a block as a bulk copy lands it, kRows rows of B floats (row r of
-// source q at sm[r * B + q]; B a multiple of 4, sm 16-byte aligned),
-// against kN targets. Rather than transpose the block into block_aos's
-// layout, each row is read where it lies: one broadcast float4 load per
-// row brings four whole sources, and each serves all kN targets, so the
-// shared loads per pair fall from kRows in block() to kRows / (4 * kN)
-// (kRows / 8 for the executors' two targets). Four sources a load spill
-// in no body, and two measured slower; the loop is unrolled twice, so
-// the next four sources' loads issue while these are summed (faster than
-// once, or than prefetching them by hand; PERF.md §6). Each target sums
-// the block into its own partial in source order and adds it onto acc
-// once: per target, block()'s order of sums, so K10 and K11 give K1's
-// bits.
+// The pair loop of K10/K11 (pairs.cuh exec_fetch_runs): the B sources of a
+// block as a bulk copy lands it, kRows rows of B floats (row r of source q at
+// sm[r * B + q]; B a multiple of 4, sm 16-byte aligned), against kN targets.
+// Rather than transpose the block into block_aos's layout, each row is read
+// where it lies: one broadcast float4 load per row brings four whole sources,
+// and each serves all kN targets, so the shared loads per pair fall from
+// kRows (one load a row) to kRows / (4 * kN) (kRows / 8 for the executors'
+// two targets). Four sources a load spill in no body, and two measured
+// slower; the loop is unrolled twice, so the next four sources' loads issue
+// while these are summed (faster than once, or than prefetching them by hand;
+// PERF.md §6). Each target sums the block into its own partial in source
+// order and adds it onto acc once: per target, block_aos's order of sums, so
+// K10 and K11 give K1's bits.
 template <class Body, int kN>
 __device__ __forceinline__ void block_rows(const float* __restrict__ sm,
                                            int B,

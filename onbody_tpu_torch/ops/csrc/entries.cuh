@@ -9,14 +9,15 @@
 //                                  executor on pre-gathered sources, one
 //                                  CTA per segment of a run (pairs.cuh)
 //   onbody_exec_pre_t2_seg_<INST>  K9's, its sibling-paired form
-//   onbody_exec_pre_reduce_<INST>  K8/K9's ordered reduction of the split
-//                                  runs' partial rows (rows 1 or 2)
+//   onbody_exec_pre_reduce_<INST>  K8/K9's and K12's ordered reduction of
+//                                  the split runs' partial rows (rows 1
+//                                  or 2), over the list of split runs
 //   onbody_exec_dma_<INST>     K10, K1's sum with source blocks fetched
 //                              by bulk asynchronous copies (pairs.cuh)
 //   onbody_exec_dmap_<INST>    K11, K10 with adjacent ids bundled into
 //                              one copy (pairs.cuh)
-//   onbody_exec_static_<INST>  K12, one output row per pre-gathered step
-//                              (pairs.cuh)
+//   onbody_exec_static_<INST>  K12, K8's segment kernel with one step per
+//                              segment (pairs.cuh)
 //   onbody_occupancy_<INST>    K1/K2's, K10/K11/K12's and K8/K9's
 //                              segment kernels' shared memory per CTA,
 //                              resident CTAs per SM, ring stages,
@@ -68,11 +69,11 @@
   }                                                                        \
   extern "C" int onbody_exec_pre_reduce_##INST(                            \
       float* out, const float* partials, const int* run_tgt,               \
-      const int* run_seg, int n_runs, int rows, int B, int od8,            \
-      void* stream) {                                                      \
+      const int* run_seg, const int* split_runs, int n_split, int rows,    \
+      int B, int od8, void* stream) {                                      \
     return onbody::launch_reduce_segs<BODY>(out, partials, run_tgt,        \
-                                            run_seg, n_runs, rows, B, od8, \
-                                            stream);                       \
+                                            run_seg, split_runs, n_split,  \
+                                            rows, B, od8, stream);         \
   }                                                                        \
   extern "C" int onbody_exec_dma_##INST(                                   \
       const float* tgt_geo, const float* src_fm, float* out,               \
@@ -91,13 +92,14 @@
         od8, stream);                                                      \
   }                                                                        \
   extern "C" int onbody_exec_static_##INST(                                \
-      const float* tgt_geo, const float* src_gathered, float* rows,        \
-      const int* step_tgt, const int* steps, const int* n_slots,           \
-      int n_steps, int B, int C, int G, int od8, void* stream) {           \
-    return onbody::launch_exec_static<BODY>(tgt_geo, src_gathered, rows,   \
-                                            step_tgt, steps, n_slots,      \
-                                            n_steps, B, C, G, od8,         \
-                                            stream);                       \
+      const float* tgt_geo, const float* src_gathered, float* out,         \
+      float* partials, const int* run_tgt, const int* run_seg,             \
+      const int* seg_run, const int* seg_off, const int* steps,            \
+      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
+      void* stream) {                                                      \
+    return onbody::launch_exec_pre_seg<BODY, false>(                       \
+        tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
+        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
   }                                                                        \
   extern "C" int onbody_occupancy_##INST(int kind, int B, int C, int G,    \
                                          int* info) {                      \

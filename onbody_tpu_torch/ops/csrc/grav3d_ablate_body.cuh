@@ -40,12 +40,10 @@ namespace onbody {
 
 // The staging all four modes share: the five rows as they are, row 3
 // squared by the modes that read sr^2 (kRawStage false: K10 squares it in
-// the staged block once per source). Only K10's template runs these
-// bodies, so they leave out the plain staging (stage) that K12 needs.
+// the staged block once per source).
 template <bool kSquareSr>
 struct AblateStage {
   static constexpr int kRows = 5;
-  static constexpr int kUnroll = 4;
   static constexpr bool kRawStage = !kSquareSr;
 
   using Tgt = Grav3d::Tgt;

@@ -22,7 +22,6 @@ struct Grav3d {
   // staged rows: x, y, z, sr^2, m (featurize already stores sr^2)
   static constexpr int kRows = 5;
   static constexpr int kOut = 3;
-  static constexpr int kUnroll = 4;
 
   struct Tgt {
     float x, y, z;
@@ -38,14 +37,6 @@ struct Grav3d {
   // the staged value of fm row r: the rows are staged as they are
   static constexpr bool kRawStage = true;
   __device__ static float staged(int, float v) { return v; }
-
-  __device__ static void stage(const float* __restrict__ col,
-                               int64_t stride, float* sm, int sm_stride) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      sm[r * sm_stride] = __ldg(col + r * stride);
-    }
-  }
 
   __device__ static Src load_src(const float* sm, int stride) {
     return {sm[0], sm[stride], sm[2 * stride], sm[3 * stride],

@@ -2,12 +2,12 @@
 // instantiation per (workload, core): K1 (unpaired) and K2 (sibling-paired)
 // fetch their source blocks by id; K8 and K9 compute the same sums from
 // source blocks gathered contiguous per step, one CTA per segment of a run
-// and an ordered reduction of the split runs; K10 and K11 fetch by id with
-// bulk asynchronous copies, K11 two adjacent blocks per copy; K12 gives
-// every step its own output row. K1/K2 and K8/K9 run one CTA tile
-// (exec_tile: its pair loop, its ring of staged blocks, its order of sums)
-// and differ only in how the tile finds its blocks (IdCursor,
-// GatheredCursor).
+// and an ordered reduction of the split runs; K12 is K8's segment kernel
+// and reduction at one step per segment; K10 and K11 fetch by id with
+// bulk asynchronous copies, K11 two adjacent blocks per copy. K1/K2,
+// K8/K9 and K12 run one CTA tile (exec_tile: its pair loop, its ring of
+// staged blocks, its order of sums) and differ only in how the tile finds
+// its blocks (IdCursor, GatheredCursor).
 //
 // Offsets into the (NN, rows, B) arrays are 64-bit: at N = 1e8 NN*C*B
 // reaches 2^31, and row*od8*B doubles again for vortgrad3d (od8 = 16).
@@ -22,35 +22,34 @@
 namespace onbody {
 
 // ---------------------------------------------------------------------
-// The CTA tile of K1/K2 and K8/K9.
+// The CTA tile of K1/K2, K8/K9 and K12.
 //
 // The pair loop (body.cuh block_aos): each thread owns kTgts = 2 target
 // points (K1/K8: points i and i + ceil(B/2) of the row; K2/K9: point i of
 // rows 2q and 2q+1), which keeps a target's sum and its block partial in
 // registers without spills (4 per thread measured slower, PERF.md). Every
-// block is staged source by source, its kRows values padded to whole
-// float4s, so one or two 16-byte broadcast loads bring a source, and it
-// serves both targets: the 3D bodies' loops issue 1 shared load per pair
-// and vort2d's 0.5, against 3-5 and 2.75 in block() (chip_smoke.py's SASS
-// report). The staging is asynchronous: every thread copies single floats
-// with cp.async (coalesced global reads, the transpose done by the copy,
-// no alignment needed) into a ring of kPreStages blocks, so the next
-// blocks arrive while the current one is summed; a body whose staged rows
-// differ rewrites them in place after the copy lands (Body::staged),
-// behind a barrier. Three stages and cp.async measured best against two
-// or four stages and against bulk copies into a raw ring transposed after
-// they land (PERF.md). Tensor cores are not used: the pair terms are
-// elementwise fp32 with an rsqrt (or an exp) per pair, no contraction
-// TF32 or bf16 could take at the port's 1e-5 parity. No warp-level code
-// either, so the host emulation (tests/test_torch_csrc_host.py) still
-// checks these kernels.
+// block is staged source by source, its kRows values padded to whole float4s,
+// so one or two 16-byte broadcast loads bring a source, and it serves both
+// targets: the 3D bodies' loops issue 1 shared load per pair and vort2d's
+// 0.5, against 3-5 and 2.75 in a loop over one target's rows (chip_smoke.py's
+// SASS report; PERF.md). The staging is asynchronous: every thread copies
+// single floats with cp.async (coalesced global reads, the transpose done by
+// the copy, no alignment needed) into a ring of kPreStages blocks, so the
+// next blocks arrive while the current one is summed; a body whose staged
+// rows differ rewrites them in place after the copy lands (Body::staged),
+// behind a barrier. Three stages and cp.async measured best against two or
+// four stages and against bulk copies into a raw ring transposed after they
+// land (PERF.md). Tensor cores are not used: the pair terms are elementwise
+// fp32 with an rsqrt (or an exp) per pair, no contraction TF32 or bf16 could
+// take at the port's 1e-5 parity. No warp-level code either, so the host
+// emulation (tests/test_torch_csrc_host.py) still checks these kernels.
 //
 // Each target sums a block into its own partial in source order, adds the
 // partials onto its register accumulator in block order and the
-// accumulator onto its output row once: block()'s order of sums, so K1
-// and K8 (and K2 and K9) give the same bits on the same blocks, and K1
-// gives K10's and K11's, which keep that order on the rows their bulk
-// copies land (block_rows).
+// accumulator onto its output row once (block_aos's order of sums), so
+// K1, K8 and K12 (and K2 and K9) give the same bits on the same blocks,
+// and K1 gives K10's and K11's, which keep that order on the rows their
+// bulk copies land (block_rows).
 
 constexpr int kExecMaxThreads = 256;
 constexpr int kPreStages = 3;  // blocks in flight per CTA
@@ -96,8 +95,8 @@ __device__ __forceinline__ void stage_block_async(
 // one is left, next() moves past it, block() is its address. Every value
 // is uniform across the CTA.
 //
-// K8/K9: slots [0, n_slots[p]) (all G when n_slots is null) of the steps
-// [p, p_end) of a gathered buffer, step p's slot j at src + steps[p] *
+// K8/K9 and K12: slots [0, n_slots[p]) (all G when n_slots is null) of the
+// steps [p, p_end) of a gathered buffer, step p's slot j at src + steps[p] *
 // step_floats + j * block_floats. A skipped slot holds the inert row.
 struct GatheredCursor {
   int p, j, p_end, G;
@@ -335,6 +334,21 @@ int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
 // operations are the larger (PERF.md states both per instantiation).
 // Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
 // row*od8*B output offsets at 1e8 do not.
+//
+// K12 (pair_fetch "static"): K8 at one step per segment. Replaces
+// onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with _body_static.
+// The TPU kernel gathers a chunk's targets and sources so that every index
+// map is the grid index, writes one output row per step, and its caller
+// segment-adds the rows into the accumulator. Here step p's blocks sit at
+// src_gathered + steps[p]*G*C*B, so no id is loaded before a copy, and one
+// CTA per step spreads a long run over the whole card: exec_pre_segs on a
+// plan of one step per segment (ops/cuda_pairs.py:_seg_plan). A step whose
+// run has one step adds its sums onto its row, of which it is the only
+// CTA; a step of a longer run writes a kOut x B partial row, and
+// reduce_segs adds a run's partials onto its row in step order over the
+// list of split runs. No atomics: K12 gives K8's bits at S = 1, fixed by
+// the list alone. Its bound is K8's: the pairs' operations, the bytes
+// adding each split run's partial rows, written once and read back once.
 
 template <class Body, bool kPaired>
 __global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
@@ -388,22 +402,24 @@ int launch_exec_pre_seg(const float* tgt_geo, const float* src_gathered,
   return (int)cudaGetLastError();
 }
 
-// K8/K9's ordered reduction: one CTA row per run, one thread per value of
-// the run's `rows` partial rows (rows x kOut x B); a run of one segment
-// has nothing to add. Each value is the sum of the run's partials in
+// K8/K9's and K12's ordered reduction: one CTA row per split run (split_runs
+// lists the runs of more than one segment; a run of one segment has nothing
+// to add and gets no CTA), one thread per value of the run's `rows` partial
+// rows (rows x kOut x B). Each value is the sum of the run's partials in
 // segment order, then added onto the output row. Bound by bytes: the
 // partials read once, the output rows read and written once.
 template <class Body>
 __global__ void reduce_segs(float* __restrict__ out,
                             const float* __restrict__ partials,
                             const int* __restrict__ run_tgt,
-                            const int* __restrict__ run_seg, int rows, int B,
-                            int od8) {
-  const int run = blockIdx.x;
+                            const int* __restrict__ run_seg,
+                            const int* __restrict__ split_runs, int rows,
+                            int B, int od8) {
+  const int run = split_runs[blockIdx.x];
   const int s0 = run_seg[run], s1 = run_seg[run + 1];
   const int per = rows * Body::kOut * B;
   const int e = blockIdx.y * blockDim.x + threadIdx.x;
-  if (s1 - s0 < 2 || e >= per) return;
+  if (e >= per) return;
   const float* p = partials + (int64_t)s0 * per + e;
   float v = p[0];
   int s = 1;
@@ -425,13 +441,13 @@ constexpr int kReduceThreads = 256;
 
 template <class Body>
 int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
-                       const int* run_seg, int n_runs, int rows, int B,
-                       int od8, void* stream) {
-  if (n_runs <= 0) return (int)cudaSuccess;
+                       const int* run_seg, const int* split_runs,
+                       int n_split, int rows, int B, int od8, void* stream) {
+  if (n_split <= 0) return (int)cudaSuccess;
   const int per = rows * Body::kOut * B;
-  const dim3 grid(n_runs, (per + kReduceThreads - 1) / kReduceThreads);
+  const dim3 grid(n_split, (per + kReduceThreads - 1) / kReduceThreads);
   reduce_segs<Body><<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      out, partials, run_tgt, run_seg, rows, B, od8);
+      out, partials, run_tgt, run_seg, split_runs, rows, B, od8);
   return (int)cudaGetLastError();
 }
 
@@ -463,7 +479,8 @@ int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
 // applies). block_rows (body.cuh) then reads the rows where they lie,
 // one broadcast load of four consecutive sources per row, each source
 // serving the thread's two targets: kRows / 8 shared loads a pair (3 to 5
-// in block(), K1's 1 from its transposed float4 layout). Each block is
+// in a loop over one target's rows, K1's 1 from its transposed float4
+// layout). Each block is
 // summed into its own partials in source order, in slot order, so on the
 // same groups K10 and K11 give K1's result bit for bit.
 //
@@ -632,111 +649,6 @@ int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------
-// K12 (pair_fetch "static"): one CTA per step. Replaces
-// onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with _body_static.
-//
-// The TPU kernel gathers both the targets and the sources of a chunk so
-// that every index map is the grid index, evaluates kper = 8 steps per
-// grid step into per-step output rows, and the caller segment-adds the
-// rows into the accumulator. Here a CTA per step reads its target block
-// by row (a CTA can, so the targets are not gathered), sums the step's
-// gathered source blocks with plain loads, `stage` blocks per barrier
-// pair (sum_gathered), and writes its own row (od8, B), the padding rows
-// as zeros. No run table and no aliasing: however long a target's run, its
-// steps spread over the whole card, which is what K1's one CTA per run
-// cannot do on long runs. The
-// wrapper adds the rows into the accumulator with one index_add_ per
-// chunk. Pad steps are not launched (steps[] lists the real ones).
-//
-// What bounds it: the pairs' operations, as K8; the bytes add each
-// step's row, written once and read back by the segment add.
-
-constexpr int kPreStageBytes = 32 * 1024;
-
-// One step's first n gathered blocks (src, C rows of B floats each) summed
-// onto a0, `stage` blocks staged per barrier pair, each block into its own
-// partial in slot order.
-template <class Body>
-__device__ __forceinline__ void sum_gathered(
-    const float* __restrict__ src, int n, int B, int C, int stage,
-    float* sm, bool act, const typename Body::Tgt& t0,
-    float (&a0)[Body::kOut]) {
-  const int sm_stride = stage * B;
-  for (int j0 = 0; j0 < n; j0 += stage) {  // n is uniform across the CTA
-    const int cnt = (n - j0) < stage ? (n - j0) : stage;
-    __syncthreads();  // the previous blocks' readers are done
-    for (int k = threadIdx.x; k < cnt * B; k += blockDim.x) {
-      const int j = k / B;
-      const int col = k - j * B;
-      Body::stage(src + (int64_t)(j0 + j) * C * B + col, B, sm + k,
-                  sm_stride);
-    }
-    __syncthreads();
-    if (act) {
-      for (int j = 0; j < cnt; ++j) {
-        block<Body>(sm + j * B, sm_stride, B, t0, a0);
-      }
-    }
-  }
-}
-
-// Blocks of B sources staged per barrier pair within kPreStageBytes.
-template <class Body>
-int pre_stage(int B, int G) {
-  const int stage = kPreStageBytes / ((int)sizeof(float) * Body::kRows * B);
-  return stage < 1 ? 1 : (stage > G ? G : stage);
-}
-
-template <class Body>
-__global__ void exec_static_steps(const float* __restrict__ tgt_geo,
-                                  const float* __restrict__ src_gathered,
-                                  float* __restrict__ rows,
-                                  const int* __restrict__ step_tgt,
-                                  const int* __restrict__ steps,
-                                  const int* __restrict__ n_slots, int B,
-                                  int C, int G, int od8, int stage) {
-  extern __shared__ float sm[];  // Body::kRows rows of stage * B floats
-  const int p = blockIdx.x;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool act = i < B;
-  typename Body::Tgt t0{};
-  if (act) t0 = Body::load_tgt(tgt_geo + (int64_t)step_tgt[p] * 8 * B + i, B);
-  float a0[Body::kOut];
-#pragma unroll
-  for (int o = 0; o < Body::kOut; ++o) a0[o] = 0.f;
-  sum_gathered<Body>(src_gathered + (int64_t)steps[p] * G * C * B,
-                     n_slots ? n_slots[p] : G, B, C, stage, sm, act, t0,
-                     a0);
-  if (act) {
-    float* o0 = rows + (int64_t)p * od8 * B + i;
-#pragma unroll
-    for (int o = 0; o < Body::kOut; ++o) o0[o * B] = a0[o];
-    for (int o = Body::kOut; o < od8; ++o) o0[o * B] = 0.f;
-  }
-}
-
-template <class Body>
-int launch_exec_static(const float* tgt_geo, const float* src_gathered,
-                       float* rows, const int* step_tgt, const int* steps,
-                       const int* n_slots, int n_steps, int B, int C, int G,
-                       int od8, void* stream) {
-  if (n_steps <= 0) return (int)cudaSuccess;
-  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-  const dim3 grid(n_steps, (B + threads - 1) / threads);
-  const int stage = pre_stage<Body>(B, G);
-  const size_t smem = sizeof(float) * stage * Body::kRows * B;
-  // always: an occupancy query at another B may have set a smaller limit
-  const cudaError_t err = cudaFuncSetAttribute(
-      exec_static_steps<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  exec_static_steps<Body><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      tgt_geo, src_gathered, rows, step_tgt, steps, n_slots, B, C, G, od8,
-      stage);
-  return (int)cudaGetLastError();
-}
-
 // Dynamic shared memory per CTA, resident CTAs per SM and ring stages of
 // one launch configuration, and the kernel's registers per thread and
 // local (spill) bytes per thread, into info[0..4].
@@ -779,8 +691,9 @@ int tile_occupancy(const void* fn, int B, int* info) {
   return occupancy_of(fn, threads, smem, kPreStages, info);
 }
 
-// occupancy_of K10 (kind 0), K11 (1), K12 (2), the segment kernel of K8
-// (3) or K9 (4), K1 (5) or K2 (6) at (B, C, G).
+// occupancy_of K10 (kind 0), K11 (1), K12 (2: K8's segment kernel, the
+// launch K12 makes), the segment kernel of K8 (3) or K9 (4), K1 (5) or K2
+// (6) at (B, C, G).
 template <class Body>
 int occupancy(int kind, int B, int C, int G, int* info) {
   switch (kind) {
@@ -788,6 +701,7 @@ int occupancy(int kind, int B, int C, int G, int* info) {
       return fetch_occupancy<Body, false>(B, C, info);
     case 1:
       return fetch_occupancy<Body, true>(B, C, info);
+    case 2:
     case 3:
       return tile_occupancy<Body, false>(
           (const void*)exec_pre_segs<Body, false>, B, info);
@@ -801,10 +715,7 @@ int occupancy(int kind, int B, int C, int G, int* info) {
       return tile_occupancy<Body, true>((const void*)exec_runs<Body, true>,
                                         B, info);
   }
-  const int threads = B < kExecMaxThreads ? B : kExecMaxThreads;
-  const size_t smem = sizeof(float) * pre_stage<Body>(B, G) * Body::kRows * B;
-  return occupancy_of((const void*)exec_static_steps<Body>, threads, smem, 0,
-                      info);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace onbody

@@ -22,7 +22,6 @@ struct Vort2d {
   // staged rows: x, y, sr^2, ss
   static constexpr int kRows = 4;
   static constexpr int kOut = 2;
-  static constexpr int kUnroll = 4;
 
   struct Tgt {
     float x, y, tr2;
@@ -40,14 +39,6 @@ struct Vort2d {
   static constexpr bool kRawStage = false;
   __device__ static float staged(int r, float v) {
     return r == 2 ? v * v : v;
-  }
-
-  __device__ static void stage(const float* __restrict__ col,
-                               int64_t stride, float* sm, int sm_stride) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      sm[r * sm_stride] = staged(r, __ldg(col + r * stride));
-    }
   }
 
   __device__ static Src load_src(const float* sm, int stride) {

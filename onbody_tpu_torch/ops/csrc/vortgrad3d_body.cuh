@@ -26,7 +26,6 @@ struct Vortgrad3d {
   // staged rows: x, y, z, Core::aux3(sr), wx, wy, wz
   static constexpr int kRows = 7;
   static constexpr int kOut = 12;
-  static constexpr int kUnroll = 2;
 
   struct Tgt {
     float x, y, z;
@@ -43,14 +42,6 @@ struct Vortgrad3d {
   static constexpr bool kRawStage = false;
   __device__ static float staged(int r, float v) {
     return r == 3 ? Core::aux3(v) : v;
-  }
-
-  __device__ static void stage(const float* __restrict__ col,
-                               int64_t stride, float* sm, int sm_stride) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      sm[r * sm_stride] = staged(r, __ldg(col + r * stride));
-    }
   }
 
   __device__ static Src load_src(const float* sm, int stride) {

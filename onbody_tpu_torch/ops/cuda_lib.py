@@ -3,7 +3,8 @@
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
 `vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12; K8 and K9
-each a segment kernel and an ordered reduction) and direct (K4, a
+each a segment kernel and an ordered reduction, which K12 shares with
+K8 at one step per segment) and direct (K4, a
 kernel and an ordered reduction of its source splits) templates
 (`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
 also K13, K10's template on the four ablated grav3d bodies
@@ -43,7 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # core_func values with a CUDA body (core.cuh); grav3d has no core
 CUDA_CORES = ("rm", "exp")
 # K8 and K9 are each a segment kernel ("exec_pre_seg", "exec_pre_t2_seg")
-# and the ordered reduction they share ("exec_pre_reduce"); K4 is the
+# and the ordered reduction they share ("exec_pre_reduce"); K12
+# ("exec_static") is K8's segment kernel at one step per segment and
+# launches the same reduction; K4 is the
 # direct kernel ("direct") and the ordered reduction of its source
 # splits ("direct_reduce")
 KINDS = ("exec", "exec_t2", "direct", "direct_reduce", "exec_pre_seg",
@@ -70,10 +73,10 @@ _ARGTYPES = {
     "direct_reduce": [_P] * 2 + [_I] * 2 + [_P],
     "exec_pre_seg": [_P] * 10 + [_I] * 5 + [_P],
     "exec_pre_t2_seg": [_P] * 10 + [_I] * 5 + [_P],
-    "exec_pre_reduce": [_P] * 4 + [_I] * 4 + [_P],
+    "exec_pre_reduce": [_P] * 5 + [_I] * 4 + [_P],
     "exec_dma": [_P] * 6 + [_I] * 5 + [_P],
     "exec_dmap": [_P] * 6 + [_I] * 5 + [_P],
-    "exec_static": [_P] * 6 + [_I] * 5 + [_P],
+    "exec_static": [_P] * 10 + [_I] * 5 + [_P],
     "occupancy": [_I] * 4 + [_P],
     "direct_occupancy": [_P],
 }

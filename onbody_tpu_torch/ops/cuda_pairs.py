@@ -28,7 +28,8 @@ chunks and gathers as 'pregather' and runs K12, and has no paired form.
 K8 and K9 cut every run of a chunk into segments of at most S steps
 (`_plan_segments`; S from `seg_steps_for`), launch one CTA per segment
 and, when a run was split, an ordered reduction of its segments' partial
-rows; `exec_pairs_pre_split_torch` is the plain twin of that split.
+rows; `exec_pairs_pre_split_torch` is the plain twin of that split. K12
+is K8 at one step per segment.
 """
 
 from __future__ import annotations
@@ -186,9 +187,8 @@ def exec_pairs_pre_torch_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
     return out_fm
 
 
-# K12's twin: per-step rows of the gathered steps, each chunk of them
-# index_add_-ed into its target rows, which is what the pre-gathered
-# twin does (_twin_add)
+# K12's twin: K12 computes K8's sums (at one step per segment), so the
+# pre-gathered twin is its twin
 exec_pairs_static_torch = exec_pairs_pre_torch
 
 
@@ -440,18 +440,18 @@ def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
                 out_fm, group: int, n_slots, seg_steps=None,
                 gt_host=None) -> bool:
     """Run one gathered chunk (K8 "exec_pre", K9 "exec_pre_t2", K12
-    "exec_static"); False when the chunk has no real step. n_slots (P,)
-    or None: slots of each step to evaluate (the rest hold the inert
-    row, which adds exactly zero). K8/K9: the runs cut into segments of
-    at most seg_steps steps (None: seg_steps_for's choice), the segment
-    kernel, then, when a run was split, the ordered reduction of the
-    partial rows (a scratch allocated here, one or two rows per
-    segment). K8/K9 make the run and segment tables on the host, from
-    gt_host (group_t's copy there; copied here when None), and send them
-    to the card in one asynchronous copy: a chunk waits on the card at
-    most for that one copy of its keys, and not at all when the caller
-    copied the whole list once (the front door). K12 writes one row per
-    real step, which one index_add_ then adds into out_fm."""
+    "exec_static"): its plan, the segment kernel, then, when a run was
+    split, the ordered reduction of the split runs' partial rows (a
+    scratch allocated here, one or two rows per segment); False when the
+    chunk has no real step. n_slots (P,) or None: slots of each step to
+    evaluate (the rest hold the inert row, which adds exactly zero).
+    K8/K9 cut the runs into segments of at most seg_steps steps (None:
+    seg_steps_for's choice), K12 into its steps. The run and segment
+    tables are made on the host, from gt_host (group_t's copy there;
+    copied here when None), and sent to the card in one asynchronous
+    copy: a chunk waits on the card at most for that one copy of its
+    keys, and not at all when the caller copied the whole list once (the
+    front door)."""
     paired = kind == "exec_pre_t2"
     inst = cuda_lib.instance(kernel.name, core)
     launched = kind if kind == "exec_static" else kind + "_seg"
@@ -466,60 +466,44 @@ def _launch_pre(kind: str, kernel, core, tgt_geo, src_gathered, group_t,
                   src_gathered=src_gathered)
     if max(tgt_geo.shape[0], p) >= 2 ** 31:
         raise ValueError("pair executor: sizes must fit in int32")
-    if kind != "exec_static" and gt_host is None:
+    if gt_host is None:
         gt_host = group_t.cpu()
-    steps, run_tgt, run_off = _run_table(
-        group_t if kind == "exec_static" else gt_host)
+    steps, run_tgt, run_off = _run_table(gt_host)
     if run_tgt.numel() == 0:
         return False
     _check_targets(name, run_tgt, tgt_geo.shape[0] // (2 if paired else 1))
-    c = gc // group
-    if kind != "exec_static":
-        if seg_steps is None:
-            seg_steps = seg_steps_for(launched, inst, steps.numel(), b, c,
-                                      group, out_fm.device)
-        plan = _seg_plan(launched, kernel, core, steps, run_tgt, run_off,
-                         n_slots, seg_steps, out_fm.device)
-        partials = launch_segments(plan, tgt_geo, src_gathered, out_fm,
-                                   group)
-        if partials is not None:
-            reduce_segments_cuda(kernel, core, out_fm, partials,
-                                 plan.run_tgt, plan.run_seg)
-        return True
-    slots = None
-    if n_slots is not None:
-        slots = n_slots[steps].to(torch.int32).contiguous()
-    steps32 = steps.to(torch.int32).contiguous()
-    # K12: one row per real step, keyed by the step's target row
-    rows_t = group_t[steps]
-    keys = rows_t.to(torch.int32).contiguous()
-    rows = out_fm.new_empty((steps.numel(),) + out_fm.shape[1:])
-    rc = getattr(cuda_lib.lib(), name)(
-        tgt_geo.data_ptr(), src_gathered.data_ptr(), rows.data_ptr(),
-        keys.data_ptr(), steps32.data_ptr(),
-        None if slots is None else slots.data_ptr(), steps.numel(), b, c,
-        group, out_fm.shape[1], cuda_lib.stream_ptr(out_fm.device))
-    cuda_lib.check(rc, name)
-    LAUNCHES[(kind, inst)] += 1
-    out_fm.index_add_(0, rows_t, rows)
+    if kind == "exec_static":
+        seg_steps = 1
+    elif seg_steps is None:
+        seg_steps = seg_steps_for(launched, inst, steps.numel(), b,
+                                  gc // group, group, out_fm.device)
+    plan = _seg_plan(launched, kernel, core, steps, run_tgt, run_off,
+                     n_slots, seg_steps, out_fm.device)
+    partials = launch_segments(plan, tgt_geo, src_gathered, out_fm, group)
+    if partials is not None:
+        reduce_segments_cuda(plan, out_fm, partials)
     return True
 
 
 class SegPlan(collections.namedtuple("SegPlan", (
         "kernel", "core", "kind", "steps", "n_slots", "run_tgt", "seg_run",
-        "seg_off", "run_seg"))):
-    """One gathered chunk's K8/K9 launch: the kernel, core and segment
-    kind ("exec_pre_seg" or "exec_pre_t2_seg"), the real steps and their
-    slot counts (or None), and the run and segment tables of
-    _run_table / _plan_segments, all int32 on the card."""
+        "seg_off", "run_seg", "split_runs"))):
+    """One gathered chunk's K8/K9/K12 launch: the kernel, core and kind
+    ("exec_pre_seg", "exec_pre_t2_seg" or "exec_static"), the real steps
+    and their slot counts (or None), the run and segment tables of
+    _run_table / _plan_segments (K12: one step per segment) and the runs
+    of more than one segment, which the reduction adds up; all int32 on
+    the card."""
 
 
 def _seg_plan(kind, kernel, core, steps, run_tgt, run_off, n_slots,
               seg_steps, device) -> SegPlan:
     """SegPlan of a run table on `device`; a table made elsewhere (the
     host) goes there in one asynchronous copy from pinned memory."""
-    tables = [steps.to(torch.int32), run_tgt,
-              *_plan_segments(run_off, seg_steps)]
+    seg_run, seg_off, run_seg = _plan_segments(run_off, seg_steps)
+    split = torch.nonzero(run_seg[1:] - run_seg[:-1] > 1).squeeze(1)
+    tables = [steps.to(torch.int32), run_tgt, seg_run, seg_off, run_seg,
+              split.to(torch.int32)]
     if steps.device != device:
         flat = torch.cat(tables).pin_memory().to(device, non_blocking=True)
         tables = list(torch.split(flat, [t.numel() for t in tables]))
@@ -530,11 +514,12 @@ def _seg_plan(kind, kernel, core, steps, run_tgt, run_off, n_slots,
 
 
 def plan_chunk(kind: str, kernel: Kernel, core: str, group_t, n_slots,
-               seg_steps: int) -> SegPlan:
-    """The K8 ("exec_pre_seg") or K9 ("exec_pre_t2_seg") plan of one
-    gathered chunk's keys group_t at seg_steps steps per segment, on
-    group_t's device, as the wrapper makes it (no checks): for timing
-    the kernels apart from the planning (launch_segments)."""
+               seg_steps: int = 1) -> SegPlan:
+    """The K8 ("exec_pre_seg"), K9 ("exec_pre_t2_seg") or K12
+    ("exec_static", at seg_steps 1) plan of one gathered chunk's keys
+    group_t at seg_steps steps per segment, on group_t's device, as the
+    wrapper makes it (no checks): for timing the kernels apart from the
+    planning (launch_segments)."""
     steps, run_tgt, run_off = _run_table(group_t.cpu())
     return _seg_plan(kind, kernel, core, steps, run_tgt, run_off, n_slots,
                      seg_steps, group_t.device)
@@ -542,16 +527,16 @@ def plan_chunk(kind: str, kernel: Kernel, core: str, group_t, n_slots,
 
 def launch_segments(plan: SegPlan, tgt_geo, src_gathered, out_fm,
                     group: int):
-    """Launch a planned chunk's segment kernel: runs of one segment are
-    added onto out_fm; returns the partial rows of the split runs'
-    segments (a scratch allocated here, (n_seg, 1 or 2 rows, OD, B)) for
-    reduce_segments_cuda, or None when no run was split."""
+    """Launch a planned chunk's segment kernel (K8/K9's or K12's): runs
+    of one segment are added onto out_fm; returns the partial rows of the
+    split runs' segments (a scratch allocated here, (n_seg, 1 or 2 rows,
+    OD, B)) for reduce_segments_cuda, or None when no run was split."""
     inst = cuda_lib.instance(plan.kernel.name, plan.core)
     name = cuda_lib.entry(plan.kind, inst)
     _, gc, b = src_gathered.shape
-    n_seg, n_runs = plan.seg_run.numel(), plan.run_tgt.numel()
+    n_seg = plan.seg_run.numel()
     partials = None
-    if n_seg > n_runs:
+    if plan.split_runs.numel():
         partials = out_fm.new_empty((n_seg, 2 if "t2" in plan.kind else 1,
                                      plan.kernel.od, b))
     rc = getattr(cuda_lib.lib(), name)(
@@ -568,26 +553,27 @@ def launch_segments(plan: SegPlan, tgt_geo, src_gathered, out_fm,
     return partials
 
 
-def reduce_segments_cuda(kernel: Kernel, core: str, out_fm, partials,
-                         run_tgt, run_seg):
-    """K8/K9's ordered reduction on CUDA tensors: partials (n_seg, rows,
-    OD, B) of the segments (run r's at [run_seg[r], run_seg[r+1])), rows
-    2 for parent keys, summed in segment order onto the output rows of
-    every run of more than one segment. run_tgt and run_seg contiguous
-    int32. Twin: reduce_segments_torch. Returns out_fm."""
-    inst = cuda_lib.instance(kernel.name, core)
+def reduce_segments_cuda(plan: SegPlan, out_fm, partials):
+    """K8/K9's and K12's ordered reduction on CUDA tensors: partials
+    (n_seg, rows, OD, B) of a planned chunk's segments (run r's at
+    [run_seg[r], run_seg[r+1])), rows 2 for parent keys, summed in
+    segment order onto the output rows of the plan's split runs (no CTA
+    for a run of one segment). Twin: reduce_segments_torch. Returns
+    out_fm."""
+    inst = cuda_lib.instance(plan.kernel.name, plan.core)
     name = cuda_lib.entry("exec_pre_reduce", inst)
-    _one_cuda_device(name, out_fm, partials, run_tgt, run_seg)
+    _one_cuda_device(name, out_fm, partials, plan.run_tgt)
     n_seg, rows, od, b = partials.shape
-    if (od != kernel.od or b != out_fm.shape[2] or rows not in (1, 2)
+    if (od != plan.kernel.od or b != out_fm.shape[2] or rows not in (1, 2)
+            or n_seg != plan.seg_run.numel()
             or not partials.is_contiguous()
-            or partials.dtype != torch.float32
-            or run_seg.shape[0] != run_tgt.shape[0] + 1):
+            or partials.dtype != torch.float32):
         raise ValueError(f"{name}: partials {tuple(partials.shape)} and "
-                         f"the run table do not match")
+                         f"the plan do not match")
     rc = getattr(cuda_lib.lib(), name)(
-        out_fm.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
-        run_seg.data_ptr(), run_tgt.numel(), rows, b, out_fm.shape[1],
+        out_fm.data_ptr(), partials.data_ptr(), plan.run_tgt.data_ptr(),
+        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(),
+        plan.split_runs.numel(), rows, b, out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
     LAUNCHES[("exec_pre_reduce", inst)] += 1
@@ -762,28 +748,30 @@ def exec_pairs_pre_cuda_t2(kernel: Kernel, tgt_geo, src_gathered, group_t,
 def exec_pairs_static_cuda(kernel: Kernel, tgt_geo, src_gathered, group_t,
                            out_fm=None, final: bool = True,
                            core: str = "rm", group: int = GROUP,
-                           n_slots=None):
-    """One output row per step on pre-gathered sources (P, G*C, B), then
-    one index_add_ of the rows into their target rows: CUDA tensors
+                           n_slots=None, gt_host=None):
+    """One CTA per step on pre-gathered sources (P, G*C, B): CUDA tensors
     launch K12, CPU tensors take exec_pairs_static_torch. Adds into
     out_fm (zeros when None) and returns it, or with final=True the
-    point-major (NN_t, B, OD) view. The order of the sums across the
-    steps of a target is the atomics' (not fixed).
+    point-major (NN_t, B, OD) view. K8's sums at one step per segment,
+    bit for bit, fixed by the list alone. gt_host: group_t's copy on the
+    host, which the plan is made from (copied here when None).
 
     K12 replaces onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with
-    _body_static (pair_fetch 'static'): one CTA per step reads its
-    target block by row and sums the step's gathered blocks as K8 does,
-    so a long run of one target spreads over the card; the reference
-    segment-adds the rows outside its kernel too (csrc/pairs.cuh). Bound
-    by the pairs' operations; its bytes add the rows, written once and
-    read back by the add."""
+    _body_static (pair_fetch 'static'), whose per-step output rows its
+    caller segment-adds. Here each step's CTA is K8's tile on the step's
+    blocks, so a long run of one target spreads over the card: a step
+    whose run has one step adds onto its row, a step of a longer run
+    writes a partial row, and the ordered reduction adds a run's
+    partials onto its row in step order, with no atomics. Bound by the
+    pairs' operations; its bytes add the partial rows, written once and
+    read back once (csrc/pairs.cuh)."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_static_torch(kernel, tgt_geo, src_gathered,
                                        group_t, out_fm, final, core, group)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
     _launch_pre("exec_static", kernel, core, tgt_geo, src_gathered, group_t,
-                out_fm, group, n_slots)
+                out_fm, group, n_slots, gt_host=gt_host)
     return _finish(kernel, out_fm, final)
 
 
@@ -841,9 +829,8 @@ def _exec_pregather(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
     was split, the reduction; K12 "exec_static") or its twin. Chunks are
     separate launches in stream order on one accumulator, so a run cut
     by a chunk boundary resumes from its partial sum (reference
-    pallas_pairs.py:31-36); K12's rows are added per chunk, never all at
-    once. K8/K9 plan every chunk from one host copy of group_t, so no
-    chunk waits on the card before it is queued."""
+    pallas_pairs.py:31-36). K8/K9/K12 plan every chunk from one host copy
+    of group_t, so no chunk waits on the card before it is queued."""
     p, g = group_s.shape
     b = tgt_geo.shape[2]
     chunk = pregather_chunk(g, src_fm.shape[1], b)
@@ -853,9 +840,9 @@ def _exec_pregather(kind: str, kernel, tgt_geo, src_fm, group_t, group_s,
         run = exec_pairs_pre_torch_t2 if twin else exec_pairs_pre_cuda_t2
     else:
         run = exec_pairs_pre_torch if twin else exec_pairs_pre_cuda
-    # K8/K9 plan every chunk from one host copy of the list
-    host = (None if twin or kind == "exec_static"
-            or tgt_geo.device.type != "cuda" else group_t.cpu())
+    # every chunk planned from one host copy of the list
+    host = (None if twin or tgt_geo.device.type != "cuda"
+            else group_t.cpu())
     buf = src_fm.new_empty((min(p, chunk) * g,) + src_fm.shape[1:])
     for i in range(0, p, chunk):
         gt_c, gs_c = group_t[i:i + chunk], group_s[i:i + chunk]

@@ -15,8 +15,8 @@ Fetch (config.pair_fetch, the reference's exec.py:252-292): 'pregather'
 gathers each chunk of steps contiguous and runs K8 (paired: K9); the dma
 family fetches by source id, 'dma_i' with K1, 'dma' with K10 and 'dma_p'
 with K11 (paired: K2 for all three, as the reference runs one paired
-body for them); 'static' gathers each chunk and runs K12, and refuses a
-paired list, as the reference does.
+body for them); 'static' gathers each chunk and runs K12 (K8 at one step
+per segment), and refuses a paired list, as the reference does.
 """
 
 from __future__ import annotations

@@ -76,7 +76,7 @@ inline void __syncthreads() {}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "host"; }
@@ -418,25 +418,34 @@ def _run_pre(lib, kind, kernel, core, tgt_geo, src_gathered, gt, out,
     ordered reduction when a run was split. Partial rows start as NaN,
     so a value the kernels should have written and did not shows."""
     steps, run_tgt, run_off = cuda_pairs._run_table(gt)
-    seg_run, seg_off, run_seg = cuda_pairs._plan_segments(run_off,
-                                                          seg_steps)
-    slots = None if n_slots is None else n_slots[steps].int().contiguous()
-    steps = steps.int().contiguous()
+    plan = cuda_pairs._seg_plan(kind + "_seg", kernel, core, steps, run_tgt,
+                                run_off, n_slots, seg_steps, gt.device)
+    return _launch_plan(lib, plan, tgt_geo, src_gathered, out, group)
+
+
+def _launch_plan(lib, plan, tgt_geo, src_gathered, out, group):
+    """A planned chunk (cuda_pairs.SegPlan) as launch_segments and
+    reduce_segments_cuda run it: the segment kernel, then the reduction
+    over the split runs. Partial rows start as NaN, so a value the
+    kernels should have written and did not shows."""
     _, gc, b = src_gathered.shape
-    rows = 2 if kind == "exec_pre_t2" else 1
-    partials = torch.full((max(seg_run.numel(), 1), rows, kernel.od, b),
+    rows = 2 if plan.kind == "exec_pre_t2_seg" else 1
+    n_seg = plan.seg_run.numel()
+    partials = torch.full((max(n_seg, 1), rows, plan.kernel.od, b),
                           float("nan"))
-    rc = _entry(lib, kind + "_seg", kernel.name, core)(
+    rc = _entry(lib, plan.kind, plan.kernel.name, plan.core)(
         tgt_geo.data_ptr(), src_gathered.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), run_tgt.data_ptr(), run_seg.data_ptr(),
-        seg_run.data_ptr(), seg_off.data_ptr(), steps.data_ptr(),
-        None if slots is None else slots.data_ptr(), seg_run.numel(), b,
-        gc // group, group, out.shape[1], None)
-    if rc or seg_run.numel() == run_tgt.numel():
+        partials.data_ptr(), plan.run_tgt.data_ptr(),
+        plan.run_seg.data_ptr(), plan.seg_run.data_ptr(),
+        plan.seg_off.data_ptr(), plan.steps.data_ptr(),
+        None if plan.n_slots is None else plan.n_slots.data_ptr(), n_seg,
+        b, gc // group, group, out.shape[1], None)
+    if rc or plan.split_runs.numel() == 0:
         return rc
-    return _entry(lib, "exec_pre_reduce", kernel.name, core)(
-        out.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
-        run_seg.data_ptr(), run_tgt.numel(), rows, b, out.shape[1], None)
+    return _entry(lib, "exec_pre_reduce", plan.kernel.name, plan.core)(
+        out.data_ptr(), partials.data_ptr(), plan.run_tgt.data_ptr(),
+        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(),
+        plan.split_runs.numel(), rows, b, out.shape[1], None)
 
 
 @pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
@@ -698,42 +707,99 @@ def test_host_k10_k11_equal_k1(host_lib, name, core, case):
                                 if r not in keys])].any()
 
 
-@pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
+# K12's cases (rows, block width, target keys): runs of 1, 2 and 10 steps
+# with pads between and after them at B 32, on lean rows and rows padded
+# to 8; at B 36, whose half-row of 18 threads is no whole warp, the last
+# step a run of its own; at B 516, a row over two CTAs (runs of 1, 2 and
+# 3 steps)
+K12_RUNS = [3, 0, 5, 5] + [1] * 10 + [0, 9, 0]
+K12_CASES = {"lean-b32": (False, 32, K12_RUNS),
+             "pad8-b32": (True, 32, K12_RUNS),
+             "lean-b36": (False, 36, K12_RUNS[:-1]),
+             "lean-b516": (False, 516, [5, 5, 0, 3, 7, 7, 7, 0])}
+
+
+@pytest.mark.parametrize("case", list(K12_CASES))
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_host_k12_matches_twin(host_lib, name, core, pad8):
-    """K12's per-step rows on a gathered chunk (lean rows and rows padded
-    to 8), added into their targets with index_add_: its twin's result
-    within the kernel limits and K1's; the padding rows are zeros."""
+def test_host_k12_matches_twin(host_lib, name, core, case):
+    """K12 on a gathered chunk as its wrapper runs it: the plan at one
+    step per segment, one CTA per step, then the reduction of the runs of
+    more than one step, with n_slots below G on some steps: K8's result
+    at one step per segment bit for bit, its twin's within the kernel
+    limits (and K1's at B 32), rows without a run untouched."""
     kernel = get_kernel(name)
-    b, group = 32, 8
-    src_fm, tgt_geo = _blocks(kernel, seed=14)
-    if not pad8:
-        src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
-    gt, gs = _groups([3, 3, 0, 5, 1, 1, 1, 0, 9, 0], seed=15)
-    gathered = cuda_pairs._pregather(name, src_fm, gs, b, pad8=False)
-    steps = torch.nonzero(gt).squeeze(1)
-    keys = gt[steps].int().contiguous()
-    slots = cuda_pairs.n_real_slots(gs)[steps].int().contiguous()
+    pad8, b, gt_list = K12_CASES[case]
+    group = 8
+    src_fm, tgt_geo = _blocks(kernel, b=b, seed=14)
+    lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
+    gt, gs = _groups(gt_list, seed=15)
+    gs[2:, group // 2:] = torch.where(gs[2:, group // 2:] % 3 == 0, 0,
+                                      gs[2:, group // 2:])
+    gs[gt == 0] = 0
+    slots = cuda_pairs.n_real_slots(gs)
+    assert (slots[gt != 0] < group).any()
+    gathered = cuda_pairs._pregather(name, src_fm if pad8 else lean, gs, b,
+                                     pad8=False)
+    plan = cuda_pairs.plan_chunk("exec_static", kernel, core, gt, slots)
+    assert plan.seg_run.numel() == (gt != 0).sum()
     od8 = cuda_pairs.od8(kernel)
-    rows = torch.full((steps.numel(), od8, b), float("nan"))
-    steps32 = steps.int().contiguous()
-    assert _entry(host_lib, "exec_static", name, core)(
-        tgt_geo.data_ptr(), gathered.data_ptr(), rows.data_ptr(),
-        keys.data_ptr(), steps32.data_ptr(), slots.data_ptr(),
-        steps.numel(), b, src_fm.shape[1], group, od8, None) == 0
-    assert not rows[:, kernel.od:].any()
-    out = torch.zeros((16, od8, b)).index_add_(0, gt[steps], rows)
-    twin = cuda_pairs.exec_pairs_static_torch(kernel, tgt_geo, gathered, gt,
-                                              final=False, core=core,
-                                              group=group)
-    k1 = torch.zeros_like(out)
-    fm8, _ = _blocks(kernel, seed=14)
-    assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, fm8, gt, gs,
-                     k1) == 0
-    for ref in (twin, k1):
+    out = torch.zeros((16, od8, b))
+    assert _launch_plan(host_lib, plan, tgt_geo, gathered, out, group) == 0
+    k8 = torch.zeros_like(out)
+    assert _run_pre(host_lib, "exec_pre", kernel, core, tgt_geo, gathered,
+                    gt, k8, group, slots, seg_steps=1) == 0
+    assert torch.equal(out, k8)
+    refs = [cuda_pairs.exec_pairs_static_torch(kernel, tgt_geo, gathered, gt,
+                                               final=False, core=core,
+                                               group=group)]
+    if b == 32:
+        refs.append(torch.zeros_like(out))
+        assert _run_exec(host_lib, "exec", kernel, core, tgt_geo, src_fm, gt,
+                         gs, refs[-1]) == 0
+    assert torch.isfinite(out).all()
+    for ref in refs:
         rms, mx = _errors(out, ref)
         assert rms <= REL_RMS and mx <= MAX_REL
-    assert not out[torch.tensor([0, 2, 4, 6, 7, 8])].any()
+    keys = set(gt_list)
+    assert not out[torch.tensor([r for r in range(16)
+                                 if r not in keys])].any()
+    assert not out[:, kernel.od:].any()
+
+
+# runs of 1, 3, 9, 12, 1, 17, 18 and 37 segments: the 4-load groups with
+# and without a tail, single segments before, between and after them
+REDUCE_SEGS = [1, 3, 9, 12, 1, 17, 18, 1, 37]
+
+
+@pytest.mark.parametrize("b", [256, 30], ids=["b256", "b30"])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_reduction_matches_twin(host_lib, name, core, rows, b):
+    """The ordered reduction on the split runs' list alone, rows 1 (K8,
+    K12) and 2 (K9), at B 256 and B 30 (not a multiple of 4): the twin's
+    sums bit for bit (the same order per value), the rows of one-segment
+    runs untouched though their partials are NaN (no CTA reads them)."""
+    kernel = get_kernel(name)
+    g = torch.Generator().manual_seed(22)
+    n_runs = len(REDUCE_SEGS)
+    run_seg = torch.tensor([0] + REDUCE_SEGS).cumsum(0).int()
+    run_tgt = torch.arange(1, n_runs + 1).int()
+    partials = torch.randn((int(run_seg[-1]), rows, kernel.od, b),
+                           generator=g)
+    single = torch.tensor([s == 1 for s in REDUCE_SEGS])
+    partials[run_seg[:-1][single].long()] = float("nan")
+    od8 = cuda_pairs.od8(kernel)
+    out = torch.randn((2 * 16, od8, b), generator=g)
+    twin = out.clone()
+    split = torch.nonzero(~single).squeeze(1).int()
+    assert _entry(host_lib, "exec_pre_reduce", name, core)(
+        out.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
+        run_seg.data_ptr(), split.data_ptr(), split.numel(), rows, b, od8,
+        None) == 0
+    cuda_pairs.reduce_segments_torch(twin, partials, run_tgt, run_seg,
+                                     paired=rows == 2)
+    assert torch.equal(out, twin)
+    assert torch.isfinite(out).all()
 
 
 def _ablate_entry(lib, kind, mode):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (K1, K2 pair executors, also at a
 ragged block width; K8, K9 the same on pre-gathered sources; K10, K11
-fetching by bulk copies; K12 one row per step; K13, K10 on the ablated
-grav3d bodies; K4 direct, its source splits and their reduction)
+fetching by bulk copies; K12, K8 at one step per segment; K13, K10 on
+the ablated grav3d bodies; K4 direct, its source splits and their
+reduction)
 against their plain twins and the fp64 oracle, for every (workload,
 core) instantiation, and the slice on the card against the slice on the
 CPU for every workload and fetch. Every test needs a CUDA device and
@@ -612,22 +613,36 @@ def test_k10_k11_launch_after_smaller_occupancy_query(dev, kind):
     assert torch.equal(got, k1)
 
 
+@pytest.mark.parametrize("b", FETCH_B)
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_k12_matches_twin_and_k1(dev, name, core):
-    """K12 through the front door (fetch='static': the gather, one row
-    per step, index_add_) with lean rows: its twin's result and K1's on
-    the same groups within 1.1e-6 rel-RMS (the atomics order the sums
-    across a target's steps)."""
+def test_k12_matches_twin_and_k1(dev, name, core, b):
+    """K12 through the front door (fetch='static': the gather, one CTA
+    per step, the reduction of the runs of 2 and 3 steps) with lean rows
+    at B 128, 36 and 516: two launches bit identical and K8's sums at
+    one step per segment bit for bit; its twin's result and K1's on the
+    same groups within 1.1e-6 rel-RMS (other orders of the same fp32
+    sums); rows without a run untouched."""
     kernel = get_kernel(name)
-    src_fm, tgt_geo = _blocks(dev, kernel)
+    src_fm, tgt_geo = _blocks(dev, kernel, b=b)
     lean = src_fm[:, :cuda_pairs.FM_ROWS[name]].contiguous()
     gt, gs = _groups(dev, [1, 1, 0, 2, 2, 2, 0, 5, 7, 9, 9, 9, 0])
     inst = cuda_lib.instance(name, core)
-    before = cuda_pairs.LAUNCHES[("exec_static", inst)]
+    before = {k: cuda_pairs.LAUNCHES[(k, inst)]
+              for k in ("exec_static", "exec_pre_reduce")}
     got = cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs, core=core,
                                 fetch="static")
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES[("exec_static", inst)] == before + 1
+    assert {k: cuda_pairs.LAUNCHES[(k, inst)] - v
+            for k, v in before.items()} == {"exec_static": 1,
+                                            "exec_pre_reduce": 1}
+    again = cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs, core=core,
+                                  fetch="static")
+    assert torch.equal(got, again)
+    k8 = cuda_pairs.exec_pairs_pre_cuda(
+        kernel, tgt_geo, cuda_pairs._pregather(name, lean, gs, b,
+                                               pad8=False),
+        gt, core=core, n_slots=cuda_pairs.n_real_slots(gs), seg_steps=1)
+    assert torch.equal(got, k8)
     twin = cuda_pairs.exec_pairs(kernel, tgt_geo, lean, gt, gs, core=core,
                                  fetch="static", twin=True)
     k1 = cuda_pairs.exec_pairs_cuda(kernel, tgt_geo, src_fm, gt, gs,

@@ -122,6 +122,63 @@ def test_planner_counts_and_edge_cases():
         tpp._plan_segments(run_off, 0)
 
 
+@pytest.mark.parametrize("lo,hi", [(1, 4), (27, 77), (1, 1)])
+def test_static_plan_is_k8s_at_one_step(lo, hi):
+    """K12's plan (plan_chunk "exec_static", as its wrapper makes it) is
+    K8's at one step per segment: segment s is step s, each step's run
+    and the runs' bounds in the steps, the same steps and slots, and the
+    split runs are the runs of more than one step."""
+    rng = np.random.default_rng(3)
+    kernel = TK.KERNELS["grav3d"]
+    for _ in range(4):
+        keys = rng.permutation(np.arange(1, 40))[:rng.integers(1, 12)]
+        gt = torch.from_numpy(_runs_list(rng, keys, lo, hi))
+        if rng.random() < 0.5:
+            gt[-1] = 45                 # a run of one step, the last one
+        slots = torch.from_numpy(rng.integers(1, G + 1, gt.shape[0]))
+        got = tpp.plan_chunk("exec_static", kernel, "rm", gt, slots)
+        want = tpp.plan_chunk("exec_pre_seg", kernel, "rm", gt, slots, 1)
+        steps, run_tgt, run_off = tpp._run_table(gt)
+        n = steps.numel()
+        lens = run_off[1:] - run_off[:-1]
+        assert got.kind == "exec_static"
+        assert got.seg_off.tolist() == list(range(n + 1))
+        assert got.run_seg.tolist() == run_off.tolist()
+        assert got.seg_run.tolist() == torch.repeat_interleave(
+            torch.arange(run_tgt.numel()), lens).tolist()
+        assert got.split_runs.tolist() == torch.nonzero(
+            lens > 1).squeeze(1).tolist()
+        for f in ("steps", "n_slots", "run_tgt", "seg_run", "seg_off",
+                  "run_seg", "split_runs"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == torch.int32 and a.is_contiguous(), f
+            assert torch.equal(a, b), f
+        if hi == 1:
+            assert got.split_runs.numel() == 0
+
+
+@pytest.mark.parametrize("seg_steps", [1, 2, 3, 100])
+def test_split_runs_are_the_cut_runs(seg_steps):
+    """The plan's split runs, the only runs the reduction gets a CTA
+    for, are the runs cut into more than one segment at seg_steps, in
+    run order; every other run is one segment, added onto its row by
+    the segment kernel."""
+    rng = np.random.default_rng(5)
+    keys = rng.permutation(np.arange(1, 40))[:14]
+    gt = torch.from_numpy(_runs_list(rng, keys, 1, 9))
+    plan = tpp.plan_chunk("exec_pre_seg", TK.KERNELS["vort3d"], "rm", gt,
+                          None, seg_steps)
+    _, _, run_off = tpp._run_table(gt)
+    lens = (run_off[1:] - run_off[:-1]).tolist()
+    n_segs = (plan.run_seg[1:] - plan.run_seg[:-1]).tolist()
+    assert n_segs == [-(-n // seg_steps) for n in lens]
+    assert plan.split_runs.tolist() == [r for r, n in enumerate(lens)
+                                        if n > seg_steps]
+    assert plan.split_runs.dtype == torch.int32
+    if seg_steps == 100:
+        assert plan.split_runs.numel() == 0
+
+
 def test_seg_steps_fill_two_waves(monkeypatch):
     """S = steps // (2 waves x SMs x resident CTAs), at least 1: a chunk
     of long runs is cut into at least that many CTAs."""
