@@ -23,6 +23,10 @@
 //                              resident CTAs per SM, ring stages,
 //                              registers and local bytes per thread
 //   onbody_direct_occupancy_<INST>  the same of K4's direct kernel
+// K1, K2, K10 and K11 take the run count twice: n_runs_dev, the count in
+// device memory (null: the eager wrappers' trimmed tables, n_runs runs),
+// and n_runs, the grid (with n_runs_dev: the list's static capacity; CTAs
+// at or past the count exit at once).
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.
 #pragma once
@@ -34,18 +38,20 @@
   extern "C" int onbody_exec_##INST(                                       \
       const float* tgt_geo, const float* src_fm, float* out,               \
       const int* run_tgt, const int* run_off, const int* pair_s,           \
-      int n_runs, int B, int C, int G, int od8, void* stream) {            \
-    return onbody::launch_exec<BODY, false>(tgt_geo, src_fm, out, run_tgt, \
-                                            run_off, pair_s, n_runs, B, C, \
-                                            G, od8, stream);               \
+      const int* n_runs_dev, int n_runs, int B, int C, int G,              \
+      int od8, void* stream) {                                             \
+    return onbody::launch_exec<BODY, false>(                               \
+        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev,        \
+        n_runs, B, C, G, od8, stream);                                     \
   }                                                                        \
   extern "C" int onbody_exec_t2_##INST(                                    \
       const float* tgt_geo, const float* src_fm, float* out,               \
       const int* run_tgt, const int* run_off, const int* pair_s,           \
-      int n_runs, int B, int C, int G, int od8, void* stream) {            \
-    return onbody::launch_exec<BODY, true>(tgt_geo, src_fm, out, run_tgt,  \
-                                           run_off, pair_s, n_runs, B, C,  \
-                                           G, od8, stream);                \
+      const int* n_runs_dev, int n_runs, int B, int C, int G,              \
+      int od8, void* stream) {                                             \
+    return onbody::launch_exec<BODY, true>(                                \
+        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev,        \
+        n_runs, B, C, G, od8, stream);                                     \
   }                                                                        \
   extern "C" int onbody_exec_pre_seg_##INST(                               \
       const float* tgt_geo, const float* src_gathered, float* out,         \
@@ -78,18 +84,20 @@
   extern "C" int onbody_exec_dma_##INST(                                   \
       const float* tgt_geo, const float* src_fm, float* out,               \
       const int* run_tgt, const int* run_off, const int* pair_s,           \
-      int n_runs, int B, int C, int G, int od8, void* stream) {            \
+      const int* n_runs_dev, int n_runs, int B, int C, int G,              \
+      int od8, void* stream) {                                             \
     return onbody::launch_exec_fetch<BODY, false>(                         \
-        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs, B, C, G,   \
-        od8, stream);                                                      \
+        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev,        \
+        n_runs, B, C, G, od8, stream);                                     \
   }                                                                        \
   extern "C" int onbody_exec_dmap_##INST(                                  \
       const float* tgt_geo, const float* src_fm, float* out,               \
       const int* run_tgt, const int* run_off, const int* pair_s,           \
-      int n_runs, int B, int C, int G, int od8, void* stream) {            \
+      const int* n_runs_dev, int n_runs, int B, int C, int G,              \
+      int od8, void* stream) {                                             \
     return onbody::launch_exec_fetch<BODY, true>(                          \
-        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs, B, C, G,   \
-        od8, stream);                                                      \
+        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev,        \
+        n_runs, B, C, G, od8, stream);                                     \
   }                                                                        \
   extern "C" int onbody_exec_static_##INST(                                \
       const float* tgt_geo, const float* src_gathered, float* out,         \

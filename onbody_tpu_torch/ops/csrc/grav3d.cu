@@ -1,7 +1,8 @@
 // K1, K2, K4, K8-K12 with the grav3d body (one translation unit per
 // workload, so the build compiles the workloads in parallel), and K13:
 // K10 on the four ablated grav3d bodies of grav3d_ablate_body.cuh, entry
-// points onbody_exec_ablate_<mode> (K10's arguments) and
+// points onbody_exec_ablate_<mode> (K10's arguments but the device run
+// count: K13 runs on trimmed tables, so its launch passes null) and
 // onbody_occupancy_ablate_<mode> (K10's occupancy report).
 #include "entries.cuh"
 #include "grav3d_ablate_body.cuh"
@@ -15,8 +16,8 @@ ONBODY_ENTRIES(grav3d, onbody::Grav3d)
       const int* run_tgt, const int* run_off, const int* pair_s,           \
       int n_runs, int B, int C, int G, int od8, void* stream) {            \
     return onbody::launch_exec_fetch<BODY, false>(                         \
-        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs, B, C, G,   \
-        od8, stream);                                                      \
+        tgt_geo, src_fm, out, run_tgt, run_off, pair_s, nullptr, n_runs, B,\
+        C, G, od8, stream);                                                \
   }                                                                        \
   extern "C" int onbody_occupancy_ablate_##MODE(int B, int C, int G,       \
                                                 int* info) {               \

@@ -256,6 +256,14 @@ __device__ __forceinline__ void exec_tile(const float* __restrict__ tgt_geo,
 // load uniform across the CTA. Runs are not split over CTAs: the DTT's
 // runs of 1-4 steps give thousands of CTAs, several waves of the card
 // (chip_smoke.py prints the waves of its lists).
+//
+// The run count: the eager wrappers trim the list on the host and launch
+// n_runs CTAs (n_runs_dev null). The fused solve (traverse/dtt.py
+// solve_dtt_fused) keeps the list at its static capacity and makes the
+// run table on the card, so the count lives in device memory: the grid is
+// the capacity, and a CTA at or past *n_runs_dev exits before it touches
+// shared memory (K10/K11 the same). A CTA's run, its order of sums and
+// its output are those of the trimmed launch, bit for bit.
 
 template <class Body, bool kPaired>
 __global__ void exec_runs(const float* __restrict__ tgt_geo,
@@ -263,10 +271,12 @@ __global__ void exec_runs(const float* __restrict__ tgt_geo,
                           float* __restrict__ out,
                           const int* __restrict__ run_tgt,
                           const int* __restrict__ run_off,
-                          const int* __restrict__ pair_s, int B, int C,
+                          const int* __restrict__ pair_s,
+                          const int* __restrict__ n_runs_dev, int B, int C,
                           int G, int od8) {
   extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
   const int run = blockIdx.x;
+  if (n_runs_dev != nullptr && run >= *n_runs_dev) return;  // past the list
   // K2 keys are parent ids q: the run covers rows 2q and 2q+1
   const int64_t row0 =
       kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
@@ -278,7 +288,8 @@ __global__ void exec_runs(const float* __restrict__ tgt_geo,
 template <class Body, bool kPaired>
 int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
                 const int* run_tgt, const int* run_off, const int* pair_s,
-                int n_runs, int B, int C, int G, int od8, void* stream) {
+                const int* n_runs_dev, int n_runs, int B, int C, int G,
+                int od8, void* stream) {
   if (n_runs <= 0) return (int)cudaSuccess;
   int threads, grid_y;
   size_t smem;
@@ -290,7 +301,8 @@ int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   exec_runs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8);
+      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev, B, C, G,
+      od8);
   return (int)cudaGetLastError();
 }
 
@@ -534,12 +546,14 @@ __global__ void exec_fetch_runs(const float* __restrict__ tgt_geo,
                                 float* __restrict__ out,
                                 const int* __restrict__ run_tgt,
                                 const int* __restrict__ run_off,
-                                const int* __restrict__ pair_s, int B, int C,
-                                int G, int od8) {
+                                const int* __restrict__ pair_s,
+                                const int* __restrict__ n_runs_dev, int B,
+                                int C, int G, int od8) {
   constexpr int kTgts = 2;
   extern __shared__ __align__(16) float ring[];  // kPreStages stages
   __shared__ uint64_t bar[kPreStages];
   const int run = blockIdx.x;
+  if (n_runs_dev != nullptr && run >= *n_runs_dev) return;  // past the list
   // thread i of the row's B / 2 (B is a multiple of 4) owns points i and
   // i + B / 2
   const int nthr = B / kTgts;
@@ -631,8 +645,8 @@ void fetch_config(int B, int C, int* threads, int* grid_y, size_t* smem) {
 template <class Body, bool kBundle>
 int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
                       const int* run_tgt, const int* run_off,
-                      const int* pair_s, int n_runs, int B, int C, int G,
-                      int od8, void* stream) {
+                      const int* pair_s, const int* n_runs_dev, int n_runs,
+                      int B, int C, int G, int od8, void* stream) {
   if (n_runs <= 0) return (int)cudaSuccess;
   int threads, grid_y;
   size_t smem;
@@ -645,7 +659,8 @@ int launch_exec_fetch(const float* tgt_geo, const float* src_fm, float* out,
   if (err != cudaSuccess) return (int)err;
   exec_fetch_runs<Body, kBundle><<<grid, threads, smem,
                                    (cudaStream_t)stream>>>(
-      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, B, C, G, od8);
+      tgt_geo, src_fm, out, run_tgt, run_off, pair_s, n_runs_dev, B, C, G,
+      od8);
   return (int)cudaGetLastError();
 }
 

@@ -66,16 +66,20 @@ INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# K1/K2/K10/K11: tgt_geo, src_fm, out, run_tgt, run_off, pair_s, the run
+# count in device memory (None: n_runs), n_runs (the grid), B, C, G, od8,
+# stream; K13 ("exec_ablate") the same without the device count
 _ARGTYPES = {
-    "exec": [_P] * 6 + [_I] * 5 + [_P],
-    "exec_t2": [_P] * 6 + [_I] * 5 + [_P],
+    "exec": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_t2": [_P] * 7 + [_I] * 5 + [_P],
     "direct": [_P] * 3 + [_I] * 3 + [_P],
     "direct_reduce": [_P] * 2 + [_I] * 2 + [_P],
     "exec_pre_seg": [_P] * 10 + [_I] * 5 + [_P],
     "exec_pre_t2_seg": [_P] * 10 + [_I] * 5 + [_P],
     "exec_pre_reduce": [_P] * 5 + [_I] * 4 + [_P],
-    "exec_dma": [_P] * 6 + [_I] * 5 + [_P],
-    "exec_dmap": [_P] * 6 + [_I] * 5 + [_P],
+    "exec_dma": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_dmap": [_P] * 7 + [_I] * 5 + [_P],
+    "exec_ablate": [_P] * 6 + [_I] * 5 + [_P],
     "exec_static": [_P] * 10 + [_I] * 5 + [_P],
     "occupancy": [_I] * 4 + [_P],
     "direct_occupancy": [_P],
@@ -170,7 +174,7 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     for mode in ABLATE_MODES:
         fn = getattr(so, f"onbody_exec_ablate_{mode}")
-        fn.argtypes = _ARGTYPES["exec_dma"]
+        fn.argtypes = _ARGTYPES["exec_ablate"]
         fn.restype = ctypes.c_int
         fn = getattr(so, f"onbody_occupancy_ablate_{mode}")
         fn.argtypes = _ARGTYPES["occupancy"][1:]

@@ -30,12 +30,19 @@ K8 and K9 cut every run of a chunk into segments of at most S steps
 and, when a run was split, an ordered reduction of its segments' partial
 rows; `exec_pairs_pre_split_torch` is the plain twin of that split. K12
 is K8 at one step per segment.
+
+`exec_pairs_capped` is the dma family's front door at a list's static
+capacity, the fused solve's (traverse/dtt.py solve_dtt_fused): the run
+table made on the list's device (`capped_runs`), K1/K2/K10/K11 launched
+with the run count in device memory, the id checks collected in a
+`RunChecks` and read once after the solve; nothing waits on the host.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -401,10 +408,14 @@ def _check_targets(name: str, run_tgt, nn_keys: int):
 
 
 def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
-            out_fm) -> bool:
+            out_fm, runs=None) -> bool:
     """Run one launch of a kernel that fetches by id (K1 "exec", K2
     "exec_t2", K10 "exec_dma", K11 "exec_dmap", K13
-    "exec_ablate_<mode>"); False when the list has no real step."""
+    "exec_ablate_<mode>"); False when the list has no real step. runs
+    None: the run table is made here, checked on the host (raising at
+    once) and launched at its trimmed count. runs (CappedRuns, K1/K2/
+    K10/K11): the list stays at its static capacity, one CTA per step
+    slot, the run count read on the card; no wait on the host."""
     paired = kind == "exec_t2"
     inst = cuda_lib.instance(kernel.name, core)
     # K13's entry points carry their mode, not an instance
@@ -418,18 +429,28 @@ def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
         raise ValueError(f"{name}: bulk copies need 16-byte aligned "
                          f"blocks: B={b} must be a multiple of 4 and "
                          "src_fm 16-byte aligned")
-    run_tgt, run_off, pair_s = _runs(group_t, group_s)
-    if run_tgt.numel() == 0:
-        return False
-    _check_targets(name, run_tgt, tgt_geo.shape[0] // (2 if paired else 1))
-    s_lo, s_hi = torch.stack([pair_s.min(), pair_s.max()]).tolist()
-    if s_lo < 0 or s_hi >= src_fm.shape[0]:
-        raise ValueError(f"{name}: row ids out of range (sources "
-                         f"[{s_lo}, {s_hi}] of {src_fm.shape[0]})")
+    if runs is None:
+        run_tgt, run_off, pair_s = _runs(group_t, group_s)
+        if run_tgt.numel() == 0:
+            return False
+        _check_targets(name, run_tgt,
+                       tgt_geo.shape[0] // (2 if paired else 1))
+        s_lo, s_hi = torch.stack([pair_s.min(), pair_s.max()]).tolist()
+        if s_lo < 0 or s_hi >= src_fm.shape[0]:
+            raise ValueError(f"{name}: row ids out of range (sources "
+                             f"[{s_lo}, {s_hi}] of {src_fm.shape[0]})")
+        count, grid = None, run_tgt.numel()
+    else:
+        run_tgt, run_off, pair_s = runs.run_tgt, runs.run_off, runs.pair_s
+        count, grid = runs.n_runs.data_ptr(), group_t.shape[0]
+        if grid == 0:
+            return False
+    ptrs = [tgt_geo.data_ptr(), src_fm.data_ptr(), out_fm.data_ptr(),
+            run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr()]
+    if not ablate:
+        ptrs.append(count)
     rc = getattr(cuda_lib.lib(), name)(
-        tgt_geo.data_ptr(), src_fm.data_ptr(), out_fm.data_ptr(),
-        run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
-        run_tgt.numel(), b, c, pair_s.shape[1], out_fm.shape[1],
+        *ptrs, grid, b, c, pair_s.shape[1], out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
     LAUNCHES[(kind, inst)] += 1
@@ -899,6 +920,144 @@ def exec_pairs_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
         return out_fm
     run = exec_pairs_torch_t2 if twin else exec_pairs_cuda_t2
     return run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, core)
+
+
+# ------------------------------------- static capacity (the fused solve)
+
+# bits of a capped launch's error code: each the failure of one of the
+# eager wrappers' checks (_launch), found on the device
+RUN_TARGETS, RUN_SOURCES, RUN_TWICE, RUN_GAP = 1, 2, 4, 8
+
+
+class CappedRuns(NamedTuple):
+    """The run table of a work list at its static capacity P, made on the
+    list's device with no wait on the host (capped_runs): runs [0, n_runs)
+    of run_tgt (P + 1,) and run_off (P + 2,) are _run_table's, pair_s
+    (P, G) the list's source ids, all int32; n_runs (1,) int32 is 0 when
+    `bad` ((), int32, RUN_* bits) is not, so a failed list launches no
+    work."""
+    run_tgt: torch.Tensor
+    run_off: torch.Tensor
+    pair_s: torch.Tensor
+    n_runs: torch.Tensor
+    bad: torch.Tensor
+
+
+def capped_runs(group_t, group_s, nn_keys: int, nn_src: int) -> CappedRuns:
+    """_runs and the id checks of _launch on a cap-sized list whose real
+    steps (group_t != 0) form a prefix, as group_pairs leaves them: a run
+    starts where the key changes, counted by a cumsum and placed by a
+    scatter (no nonzero, no unique, no host read). The checks set bits of
+    `bad` instead of raising: a target key outside [1, nn_keys)
+    (RUN_TARGETS), a source id of a real step outside [0, nn_src)
+    (RUN_SOURCES), a key in two separate runs (RUN_TWICE: two CTAs would
+    race on its rows), a real step after a pad step (RUN_GAP)."""
+    p = group_t.shape[0]
+    dev = group_t.device
+    gt = group_t.long()
+    real = gt != 0
+    prev = torch.cat([gt.new_zeros(1), gt])[:p]
+    prev_real = torch.cat([real.new_zeros(1), real])[:p]
+    start = real & ((gt != prev) | ~prev_real)
+    n_runs = start.sum()
+    rid = torch.cumsum(start, 0) - 1
+    # slot p of run_tgt and p + 1 of run_off are dump slots
+    run_tgt = gt.new_zeros(p + 1).scatter_(0, torch.where(start, rid, p), gt)
+    run_off = gt.new_zeros(p + 2).scatter_(
+        0, torch.where(start, rid, p + 1), torch.arange(p, device=dev))
+    run_off.scatter_(0, n_runs.view(1), real.sum().view(1))
+    in_range = (gt >= 1) & (gt < nn_keys)
+    bad_t = (real & ~in_range).any()
+    bad_s = (real[:, None] & ((group_s < 0) | (group_s >= nn_src))).any()
+    # runs per key (key 0 collects the starts out of range)
+    seen = torch.zeros(nn_keys, dtype=torch.int64, device=dev).scatter_add_(
+        0, torch.where(start & in_range, gt, 0), start.long())
+    twice = (seen[1:] > 1).any()
+    gap = (real & ~prev_real)[1:].any()
+    bad = (bad_t.int() * RUN_TARGETS + bad_s.int() * RUN_SOURCES
+           + twice.int() * RUN_TWICE + gap.int() * RUN_GAP)
+    n_runs = torch.where(bad == 0, n_runs, 0).to(torch.int32).view(1)
+    return CappedRuns(run_tgt.to(torch.int32), run_off.to(torch.int32),
+                      group_s.to(torch.int32).contiguous(), n_runs, bad)
+
+
+class RunChecks:
+    """The id checks of a solve's capped launches, kept on the device: each
+    launch adds its entry name, its key and source ranges and its error
+    code (CappedRuns.bad). word() stacks the codes into one small tensor,
+    read once when the solve is done; raise_for(values) raises the eager
+    wrappers' ValueError for the first failed launch."""
+
+    def __init__(self):
+        self.names, self.codes = [], []
+
+    def add(self, name: str, nn_keys: int, nn_src: int, bad) -> None:
+        self.names.append((name, nn_keys, nn_src))
+        self.codes.append(bad)
+
+    def word(self, device) -> torch.Tensor:
+        if not self.codes:
+            return torch.zeros((0,), dtype=torch.int32, device=device)
+        return torch.stack(self.codes)
+
+    def raise_for(self, values) -> None:
+        for (name, nn_keys, nn_src), v in zip(self.names, values):
+            if v & RUN_TARGETS:
+                raise ValueError(f"{name}: row ids out of range (targets "
+                                 f"outside [1, {nn_keys}))")
+            if v & RUN_SOURCES:
+                raise ValueError(f"{name}: row ids out of range (sources "
+                                 f"outside [0, {nn_src}))")
+            if v & RUN_TWICE:
+                raise ValueError("pair executor: a target row appears in "
+                                 "two separate runs; the list must be "
+                                 "grouped by target")
+            if v & RUN_GAP:
+                raise ValueError(f"{name}: a pad step lies between real "
+                                 "steps; the list must be front-packed")
+
+
+# the kernel each dma-family fetch runs on an unpaired list
+_BY_ID = {"dma_i": "exec", "dma": "exec_dma", "dma_p": "exec_dmap"}
+
+
+def exec_pairs_capped(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
+                      checks: RunChecks, core: str = "rm",
+                      fetch: str = "dma_i", out_fm=None,
+                      paired: bool = False):
+    """The dma family's executors on a list kept at its static capacity,
+    as the fused solve runs them: the run table made on the list's device
+    (capped_runs) and its checks added to `checks`, then K1, K10 or K11
+    (paired: K2, parent-keyed steps) launched with the run count in device
+    memory, one CTA per step slot, those past the count exiting at once;
+    nothing waits on the host. CPU tensors take the twins on the same
+    list. A list that fails its checks adds nothing (its run count is 0;
+    the twins see pad steps). Adds into out_fm (zeros when None) and
+    returns it, feature-major."""
+    _check_fetch(fetch)
+    if fetch not in _BY_ID:
+        raise NotImplementedError(
+            f"pair_fetch={fetch!r} at static capacity is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    kind = "exec_t2" if paired else _BY_ID[fetch]
+    inst = (kernel.name if kernel.name == "grav3d"
+            else f"{kernel.name}_{core}")
+    nn_keys = tgt_geo.shape[0] // (2 if paired else 1)
+    runs = capped_runs(group_t, group_s, nn_keys, src_fm.shape[0])
+    checks.add(cuda_lib.entry(kind, inst), nn_keys, src_fm.shape[0],
+               runs.bad)
+    if tgt_geo.device.type == "cpu":
+        gt = torch.where(runs.bad == 0, group_t, 0)
+        if paired:
+            return exec_pairs_torch_t2(kernel, tgt_geo, src_fm, gt, group_s,
+                                       out_fm, core)
+        return exec_pairs_torch(kernel, tgt_geo, src_fm, gt, group_s,
+                                out_fm, False, core)
+    _launch(kind, kernel, core, tgt_geo, src_fm, group_t, group_s, out_fm,
+            runs)
+    return out_fm
 
 
 # ------------------------------------------------- K13: the ablated K10

@@ -11,16 +11,19 @@ parent points at order < 0 (pair-merge).
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
 
-from onbody_tpu_torch.config import SolverConfig, check_supported
+from onbody_tpu_torch.config import SolverConfig, check_supported, pair_backend
+from onbody_tpu_torch.ops import cuda_pairs as pp
 from onbody_tpu_torch.ops.kernels import Kernel
+from onbody_tpu_torch.parts import Parts
 from onbody_tpu_torch.tree import equivalents as eq
 from onbody_tpu_torch.traverse import exec as pexec
 from onbody_tpu_torch.traverse import lists
-from onbody_tpu_torch.traverse.treecode import Plan, _leaf_outputs
+from onbody_tpu_torch.traverse.treecode import Plan, _leaf_outputs, prepare
 from onbody_tpu_torch.utils.timing import phase
 
 # children per prolongation batch: bounds the (nodes, k, j, i, P) temporary
@@ -89,14 +92,17 @@ def fastsumm_stats(raw: lists.PairList, nleaf_s: int, nleaf_t: int,
 
 def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
               theta: Optional[float] = None, unscramble: bool = True,
-              timer=None):
+              timer=None, checks: Optional[pp.RunChecks] = None):
     """Full evaluation; returns (outputs, info). unscramble=False keeps
     outputs in SORTED (tree) order, (nleaf*block_size, OD) including
     padded slots — the reference drivers' convention; map rows through
     plan.tgt_gidx. cfg.dtt_leaf_pair2 runs the leaf level through the
     sibling-paired executor (on either backend; K2 for a dma-family
     pair_fetch, K9 for 'pregather'; 'static' has no paired form and
-    keeps the unpaired leaf level, reference dtt.py:213-224)."""
+    keeps the unpaired leaf level, reference dtt.py:213-224). checks:
+    the fused route (solve_dtt_fused): the groups keep their static
+    capacity and the executors' id checks go to `checks` on the device
+    (exec.exec_pairs)."""
     check_supported(cfg, kernel)
     theta = cfg.theta_dtt if theta is None else theta
     stree, ttree = plan.stree, plan.ttree
@@ -114,7 +120,8 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
                 n_live=n_live, compact=cfg.list_compact)
     out, info = pexec.exec_pairs(kernel, cfg, plan, pl, cfg.frontier_width,
-                                 cfg.cap_groups_dtt, raw2=pl2, timer=timer)
+                                 cfg.cap_groups_dtt, raw2=pl2, timer=timer,
+                                 checks=checks)
     with phase(timer, "downward"):
         if cfg.order >= 0:
             out = _downward(out, ttree.nc, ttree.ns, plan.tgt_geo,
@@ -125,3 +132,163 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
         nleaf, bs = ttree.nleaf, ttree.block_size
         return out[nleaf:2 * nleaf, :bs, :].reshape(-1, kernel.od), info
     return _leaf_outputs(out, plan, kernel, plan.tgt_sorted.n_real), info
+
+
+# ------------------------------------------------------------ fused solve
+
+def _check_fused(cfg: SolverConfig, device) -> None:
+    if cfg.pair_fetch in ("pregather", "static"):
+        raise NotImplementedError(
+            f"solve_dtt_fused with pair_fetch={cfg.pair_fetch!r} is not "
+            "ported yet (ROADMAP.md Queue 1 item 7)")
+    if device.type == "cuda" and pair_backend(cfg) == "torch":
+        raise ValueError("solve_dtt_fused on the card runs the kernels: "
+                         "pair_backend 'torch' waits on the host")
+
+
+def fused_eager(kernel: Kernel, cfg: SolverConfig, srcs: Parts,
+                targs: Parts, unscramble: bool = True):
+    """The fused route run once, eagerly: prepare + solve_dtt with the
+    lists at their static capacity and the executors' id checks kept on
+    the device. Returns (result, info, word, checks): result and info as
+    solve_dtt_fused returns them, word the checks' error codes (one int32
+    per executor launch, all 0 when every list passed), checks the
+    RunChecks that reads them (checks.raise_for(word.tolist())). Reads
+    nothing back from the card: on CUDA tensors nothing in it waits on
+    the host."""
+    check_supported(cfg, kernel)
+    _check_fused(cfg, srcs.x.device)
+    checks = pp.RunChecks()
+    plan = prepare(kernel, cfg, srcs, targs)
+    out, info = solve_dtt(kernel, cfg, plan, unscramble=unscramble,
+                          checks=checks)
+    res = out if unscramble else (out, plan.tgt_inv)
+    return res, info, checks.word(srcs.x.device), checks
+
+
+def _clone(x):
+    """x with every tensor in it copied (tuples and named tuples kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _parts_tensors(srcs: Parts, targs: Parts):
+    return [t for t in (srcs.x, srcs.r, srcs.s, targs.x, targs.r)
+            if t is not None]
+
+
+class FusedGraph:
+    """solve_dtt_fused's program for one key, on the card: the fused route
+    (fused_eager) captured as one CUDA graph over static input buffers.
+
+    Built by a warm-up, run eagerly on a side stream with
+    torch.cuda.set_sync_debug_mode("error"), so any wait on the host in
+    the route raises here instead of being captured; then the capture
+    (torch.cuda.graph). warmup_s and capture_s are their host times. Each
+    call copies its inputs into the buffers, replays the graph, copies the
+    results out of the graph's memory (the next replay overwrites it) and
+    reads the checks' word once: the only wait on the host."""
+
+    def __init__(self, kernel: Kernel, cfg: SolverConfig, srcs: Parts,
+                 targs: Parts, unscramble: bool):
+        dev = srcs.x.device
+        self.inputs = [t.clone() for t in _parts_tensors(srcs, targs)]
+        it = iter(self.inputs)
+        s_in = Parts(x=next(it), r=next(it),
+                     s=None if srcs.s is None else next(it),
+                     n_real=srcs.n_real)
+        t_in = Parts(x=next(it), r=next(it), s=None, n_real=targs.n_real)
+        args = (kernel, cfg, s_in, t_in, unscramble)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                fused_eager(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.result, self.info, self.word, self.checks = fused_eager(
+                *args)
+        torch.cuda.synchronize(dev)
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    def __call__(self, srcs: Parts, targs: Parts):
+        for buf, t in zip(self.inputs, _parts_tensors(srcs, targs)):
+            buf.copy_(t)
+        self.graph.replay()
+        res, info = _clone(self.result), _clone(self.info)
+        self.checks.raise_for(self.word.tolist())
+        return res, info
+
+
+# solve_dtt_fused's graphs by key (clear_fused_cache empties it)
+_FUSED = {}
+
+
+def _fused_key(kernel: Kernel, cfg: SolverConfig, srcs: Parts,
+               targs: Parts, unscramble: bool):
+    ts = _parts_tensors(srcs, targs)
+    return (kernel.name, cfg, srcs.n_real, targs.n_real, unscramble,
+            srcs.x.device, tuple((tuple(t.shape), t.dtype) for t in ts))
+
+
+def fused_graph(kernel: Kernel, cfg: SolverConfig, srcs: Parts,
+                targs: Parts, unscramble: bool = True) -> FusedGraph:
+    """The cached FusedGraph of solve_dtt_fused's key for these CUDA
+    inputs, built (warm-up, capture) when the key is new."""
+    check_supported(cfg, kernel)
+    _check_fused(cfg, srcs.x.device)
+    key = _fused_key(kernel, cfg, srcs, targs, unscramble)
+    if key not in _FUSED:
+        _FUSED[key] = FusedGraph(kernel, cfg, srcs, targs, unscramble)
+    return _FUSED[key]
+
+
+def clear_fused_cache() -> None:
+    """Drop every captured graph of solve_dtt_fused and its memory pool
+    (the reference's jax.clear_caches() for its jitted program)."""
+    _FUSED.clear()
+
+
+def solve_dtt_fused(kernel: Kernel, cfg: SolverConfig, srcs: Parts,
+                    targs: Parts, unscramble: bool = True):
+    """Whole pipeline (tree builds -> equivalents -> lists -> pair
+    execution -> downward -> unscramble) as one call with no host wait
+    inside it (port of onbody_tpu/traverse/dtt.py:solve_dtt_fused).
+    Computes prepare + solve_dtt on the same inputs; returns (out, info),
+    or ((out in tree order, plan.tgt_inv), info) with unscramble=False.
+    info holds the interior groups at their static capacity, as the
+    reference's jitted program keeps them.
+
+    On CUDA tensors the first call for a key (the reference's static
+    arguments: kernel, cfg, n_src, n_tgt, unscramble; and the device,
+    shapes and dtypes) builds a FusedGraph: a warm-up in which any wait on
+    the host raises, then one CUDA graph of the whole route. Every call
+    copies the inputs into the graph's buffers, replays it, copies the
+    results out (a later call never overwrites them) and reads the
+    executors' id checks once, raising the eager wrappers' ValueError if a
+    list failed them. A failed capture raises: there is no fallback to the
+    split path. The graphs keep every intermediate of the pipeline alive
+    between calls (the reference's "peak HBM is higher");
+    clear_fused_cache() frees them. On CPU tensors the same route runs
+    eagerly on the kernels' twins, with no graph.
+
+    pair_fetch 'pregather' and 'static' raise NotImplementedError (their
+    plan waits on the host; ROADMAP.md Queue 1 item 7)."""
+    if srcs.x.device.type != "cuda":
+        res, info, word, checks = fused_eager(kernel, cfg, srcs, targs,
+                                              unscramble)
+        checks.raise_for(word.tolist())
+        return res, info
+    return fused_graph(kernel, cfg, srcs, targs, unscramble)(srcs, targs)

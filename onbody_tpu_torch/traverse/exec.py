@@ -17,6 +17,10 @@ family fetches by source id, 'dma_i' with K1, 'dma' with K10 and 'dma_p'
 with K11 (paired: K2 for all three, as the reference runs one paired
 body for them); 'static' gathers each chunk and runs K12 (K8 at one step
 per segment), and refuses a paired list, as the reference does.
+
+The eager path trims each grouped list to its real steps (one read of
+the count); the fused solve's route (`checks`) keeps the static
+capacity, as the reference does inside jit (exec.py:237-246, 266-275).
 """
 
 from __future__ import annotations
@@ -44,13 +48,15 @@ def _trim(pg: PairGroups) -> PairGroups:
     return pg._replace(tgt=pg.tgt[:n], src=pg.src[:n])
 
 
-def _grouped(raw: PairList, cfg, slot_width: int,
-             cap_groups_per_row: int) -> PairGroups:
-    """Group at the reference's static capacity, then trim the tail."""
+def _grouped(raw: PairList, cfg, slot_width: int, cap_groups_per_row: int,
+             trim: bool = True) -> PairGroups:
+    """Group at the reference's static capacity, then (trim) trim the
+    tail."""
     g = cfg.pair_group
     n_rows = raw.tgt.shape[0] // slot_width
     cap = max(1024, n_rows * cap_groups_per_row * pp.GROUP // g)
-    return _trim(group_pairs(raw, cap, g, slot_width))
+    pg = group_pairs(raw, cap, g, slot_width)
+    return _trim(pg) if trim else pg
 
 
 def exec_groups(kernel: Kernel, cfg, plan, pg: PairGroups):
@@ -66,27 +72,50 @@ def exec_groups(kernel: Kernel, cfg, plan, pg: PairGroups):
 
 def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
                cap_groups_per_row: int, raw2: Optional[PairList] = None,
-               timer=None):
+               timer=None, checks: Optional[pp.RunChecks] = None):
     """Run the builder's list (and the paired leaf list raw2) and return
     (out (NN_t, B, OD), info). info carries the interior groups, with
-    the builder's combined n_valid and the summed overflow."""
+    raw's combined n_valid (lists.build_dtt_pairs_level2) and the summed
+    overflow.
+
+    checks (the fused solve's route, dma-family fetches): the groups keep
+    their static capacity (no trim, so info holds the cap-sized arrays,
+    as the reference's jitted program keeps them) and run through
+    cuda_pairs.exec_pairs_capped (the kernels on CUDA tensors, whatever
+    pair_backend says; solve_dtt_fused refuses 'torch' there), whose id
+    checks land in `checks` on the device instead of raising; nothing
+    waits on the host."""
     twin = _use_twin(cfg, plan.tgt_geo)
     fetch = cfg.pair_fetch
+    capped = checks is not None
     if raw2 is not None and fetch == "static":
         raise ValueError("sibling-paired leaf lists need a dma-family or "
                          "pregather pair_fetch")
     with phase(timer, "exec interior"):
-        pg = _grouped(raw, cfg, slot_width, cap_groups_per_row)
-        out_fm = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm, pg.tgt,
-                               pg.src, cfg.core_func, fetch=fetch,
-                               final=False, twin=twin)
+        pg = _grouped(raw, cfg, slot_width, cap_groups_per_row,
+                      trim=not capped)
+        if capped:
+            out_fm = pp.exec_pairs_capped(
+                kernel, plan.tgt_geo, plan.src_fm, pg.tgt, pg.src, checks,
+                cfg.core_func, fetch)
+        else:
+            out_fm = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm,
+                                   pg.tgt, pg.src, cfg.core_func,
+                                   fetch=fetch, final=False, twin=twin)
     info = pg
     if raw2 is not None:
         with phase(timer, "exec leaf2"):
-            pg2 = _grouped(raw2, cfg, slot_width, cap_groups_per_row)
-            pp.exec_pairs_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt,
-                             pg2.src, out_fm, cfg.core_func, fetch=fetch,
-                             twin=twin)
+            pg2 = _grouped(raw2, cfg, slot_width, cap_groups_per_row,
+                           trim=not capped)
+            if capped:
+                pp.exec_pairs_capped(kernel, plan.tgt_geo, plan.src_fm,
+                                     pg2.tgt, pg2.src, checks,
+                                     cfg.core_func, fetch, out_fm,
+                                     paired=True)
+            else:
+                pp.exec_pairs_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt,
+                                 pg2.src, out_fm, cfg.core_func, fetch=fetch,
+                                 twin=twin)
         info = pg._replace(n_valid=raw.n_valid,
                            overflow=pg.overflow + pg2.overflow)
     return out_fm[:, :kernel.od, :].transpose(1, 2), info

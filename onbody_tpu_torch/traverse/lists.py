@@ -80,7 +80,7 @@ def _append_rows(out, out_cnt, vals):
     pos = torch.where(valid & (pos < K), pos, K)
     out = out.clone()
     out.scatter_(1, pos, torch.where(valid, vals, 0))
-    out[:, K] = 0
+    out[:, K].zero_()
     new_cnt = out_cnt + valid.sum(1)
     overflow = (new_cnt - K).clamp(min=0).sum()
     return out, new_cnt.clamp(max=K), overflow
@@ -151,7 +151,7 @@ def _treecode_lists(stree: Tree, ttree: Tree, theta: float, mac: str,
     W, K = frontier_width, list_width
     dev = ttree.x.device
     mac_fn = _MACS[mac]
-    th = torch.tensor(theta, dtype=torch.float32, device=dev)
+    th = torch.full((), theta, dtype=torch.float32, device=dev)
     tnc = ttree.nc[nleaf_t:][:, None, :]
     tns = ttree.ns[nleaf_t:][:, None, :]
     tnr = ttree.nr[nleaf_t:][:, None]
@@ -230,7 +230,7 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
         raise NotImplementedError("mac_geometry='f32' is not ported "
                                   "(ROADMAP.md Queue 1 item 5)")
     pd = stree.nc.shape[1]
-    th = torch.tensor(theta, dtype=torch.float32, device=stree.x.device)
+    th = torch.full((), theta, dtype=torch.float32, device=stree.x.device)
     lo, scale = _quant_grid(stree, ttree)
     inv = 1.0 / scale
     # grid-unit CM per dimension, then the node radius (2D: x, y, nr;
@@ -299,7 +299,7 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     total_valid, overflow = zero, zero
     cand = torch.zeros((1, W), dtype=torch.int64, device=dev)
-    cand[0, 0] = 1                                     # root vs root
+    cand[0, 0].fill_(1)     # root vs root (a fill: no copy from the host)
     p2 = None
     for l in range(levels_t + 1):
         nt = 1 << l
@@ -404,21 +404,24 @@ def build_dtt_pairs_level2(stree: Tree, ttree: Tree, theta: float,
 def _compact_groups(tgt, src, cap: int, group: int, slot_width: int):
     """Flat (tgt, src) builder rows -> G-wide chunks; chunks with a
     valid source survive, front-packed in order, padded/truncated to
-    cap. Returns (tgt (cap,), src (cap, G), n_valid, dropped chunks)."""
+    cap. Returns (tgt (cap,), src (cap, G), n_valid, dropped chunks), the
+    counts as tensors. The reference's 'scatter' mover: each kept chunk's
+    place from a cumsum, one scatter into cap + 1 rows whose last is the
+    dump of the dropped tail, so nothing waits on the host."""
     if slot_width % group:
         raise ValueError(f"slot width {slot_width} is not a multiple of "
                          f"the group {group}")
     n_valid = (src != 0).sum()
     tgt_c = tgt.view(-1, group)[:, 0]
     src_c = src.view(-1, group)
-    keep = torch.nonzero((src_c != 0).any(1)).squeeze(1)
-    n_chunks = keep.shape[0]
-    k = min(n_chunks, cap)
-    out_t = tgt.new_zeros((cap,))
-    out_s = src.new_zeros((cap, group))
-    out_t[:k] = tgt_c[keep[:k]]
-    out_s[:k] = src_c[keep[:k]]
-    return out_t, out_s, n_valid, max(n_chunks - cap, 0)
+    keep = (src_c != 0).any(1)
+    pos = torch.cumsum(keep, 0) - 1
+    pos = torch.where(keep & (pos < cap), pos, cap)
+    out_t = tgt.new_zeros((cap + 1,)).scatter_(0, pos, tgt_c)
+    out_s = src.new_zeros((cap + 1, group)).scatter_(
+        0, pos[:, None].expand(-1, group), src_c)
+    return (out_t[:cap], out_s[:cap], n_valid,
+            (keep.sum() - cap).clamp(min=0))
 
 
 def group_pairs(pl: PairList, cap: int, group: int,

@@ -84,10 +84,13 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
             tgt_geo = pp.build_tgt_geo(tblocks.pos, tblocks.rad)
     tgt_inv = None
     if want_inv:
-        real = tg < targs.n_real
-        tgt_inv = torch.zeros((targs.n_real,), dtype=torch.int64,
-                              device=tg.device)
-        tgt_inv[tg[real].long()] = torch.nonzero(real).squeeze(1)
+        # slot i of a real target goes to its original index; pad slots
+        # to a dump entry past the end, dropped (no nonzero: no host wait)
+        n = targs.n_real
+        tgt_inv = torch.zeros((n + 1,), dtype=torch.int64,
+                              device=tg.device).scatter_(
+            0, torch.where(tg < n, tg.long(), n),
+            torch.arange(tg.shape[0], device=tg.device))[:n]
     return Plan(stree=stree, ttree=ttree, src_sorted=ss, tgt_sorted=ts,
                 src_blocks=sblocks, tgt_blocks=tblocks, src_gidx=sg,
                 tgt_gidx=tg, src_fm=src_fm, tgt_geo=tgt_geo,

@@ -219,12 +219,29 @@ def _groups(gt_list, nn=16, group=8, seed=1):
 
 
 def _run_exec(lib, kind, kernel, core, tgt_geo, src_fm, gt, gs, out):
+    """K1/K2/K10/K11 on the wrapper's trimmed run table (no device
+    count)."""
     run_tgt, run_off, pair_s = cuda_pairs._runs(gt, gs)
     _, c, b = src_fm.shape
     return _entry(lib, kind, kernel.name, core)(
         tgt_geo.data_ptr(), src_fm.data_ptr(), out.data_ptr(),
-        run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(),
+        run_tgt.data_ptr(), run_off.data_ptr(), pair_s.data_ptr(), None,
         run_tgt.numel(), b, c, pair_s.shape[1], out.shape[1], None)
+
+
+def _run_capped(lib, kind, kernel, core, tgt_geo, src_fm, gt, gs, out):
+    """K1/K2/K10/K11 as the fused solve launches them: the list at its
+    capacity, the run table from capped_runs, the count read by the
+    kernel, one CTA per step slot."""
+    nn_keys = tgt_geo.shape[0] // (2 if kind == "exec_t2" else 1)
+    runs = cuda_pairs.capped_runs(gt, gs, nn_keys, src_fm.shape[0])
+    assert int(runs.bad) == 0
+    _, c, b = src_fm.shape
+    return _entry(lib, kind, kernel.name, core)(
+        tgt_geo.data_ptr(), src_fm.data_ptr(), out.data_ptr(),
+        runs.run_tgt.data_ptr(), runs.run_off.data_ptr(),
+        runs.pair_s.data_ptr(), runs.n_runs.data_ptr(), gt.shape[0], b, c,
+        gs.shape[1], out.shape[1], None)
 
 
 # the ragged case of K1/K2: an odd block width above 512, so a row takes
@@ -707,6 +724,50 @@ def test_host_k10_k11_equal_k1(host_lib, name, core, case):
                                 if r not in keys])].any()
 
 
+def _front_packed(gt, gs, tail: int):
+    """The list's real steps front-packed, then `tail` pad steps: the
+    layout group_pairs leaves at the list's static capacity."""
+    keep = gt != 0
+    return (torch.cat([gt[keep], gt.new_zeros(tail)]),
+            torch.cat([gs[keep], gs.new_zeros((tail, gs.shape[1]))]))
+
+
+# (kind, block width, target keys) of the capped launches: K1 at B 32 and
+# the ragged 577, K2 on parent keys at B 32 and 577, K10/K11 at B 36
+CAPPED_CASES = {
+    "exec-b32": ("exec", 32, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0]),
+    "exec-b577": ("exec", RAGGED_B, [3, 0, 5, 5, 9, 0]),
+    "exec_t2-b32": ("exec_t2", 32, [1, 1, 2, 0, 3, 5, 0, 7]),
+    "exec_t2-b577": ("exec_t2", RAGGED_B, [2, 0, 3, 3, 7, 0]),
+    "exec_dma-b36": ("exec_dma", 36, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0]),
+    "exec_dmap-b36": ("exec_dmap", 36, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0, 0])}
+
+
+@pytest.mark.parametrize("case", list(CAPPED_CASES))
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_capped_launch_equals_trimmed(host_lib, name, core, case):
+    """K1, K2, K10 and K11 as the fused solve launches them (the list at
+    a capacity of twice its real steps, the run table made by
+    capped_runs, the count read from memory, one CTA per step slot): the
+    trimmed launch's output bit for bit, the CTAs past the count writing
+    nothing (K2's root rows untouched)."""
+    kind, b, gt_list = CAPPED_CASES[case]
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(kernel, b=b, seed=41)
+    gt, gs = (_adjacent_groups(gt_list) if kind.startswith("exec_dma")
+              else _ragged_groups(gt_list, 42))
+    out0 = torch.zeros((16, cuda_pairs.od8(kernel), b))
+    out0[1] = 7.25
+    trimmed, capped = out0.clone(), out0.clone()
+    assert _run_exec(host_lib, kind, kernel, core, tgt_geo, src_fm, gt, gs,
+                     trimmed) == 0
+    cgt, cgs = _front_packed(gt, gs, int((gt != 0).sum()))
+    assert _run_capped(host_lib, kind, kernel, core, tgt_geo, src_fm, cgt,
+                       cgs, capped) == 0
+    assert torch.equal(capped, trimmed)
+    assert (trimmed != out0).any()
+
+
 # K12's cases (rows, block width, target keys): runs of 1, 2 and 10 steps
 # with pads between and after them at B 32, on lean rows and rows padded
 # to 8; at B 36, whose half-row of 18 threads is no whole warp, the last
@@ -804,7 +865,7 @@ def test_host_reduction_matches_twin(host_lib, name, core, rows, b):
 
 def _ablate_entry(lib, kind, mode):
     fn = getattr(lib, f"onbody_{kind}_ablate_{mode}")
-    fn.argtypes = (cuda_lib._ARGTYPES["exec_dma"] if kind == "exec"
+    fn.argtypes = (cuda_lib._ARGTYPES["exec_ablate"] if kind == "exec"
                    else cuda_lib._ARGTYPES["occupancy"][1:])
     fn.restype = ctypes.c_int
     return fn

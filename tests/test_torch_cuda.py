@@ -759,3 +759,102 @@ def test_k13_refuses_two_runs_of_one_target(dev):
                                   torch.Generator(device=dev).manual_seed(0))
     with pytest.raises(ValueError, match="two separate runs"):
         cuda_pairs.exec_ablate("full", tgt_geo, src_fm, gt, gs)
+
+
+# ------------------------------------------------ the fused solve's route
+
+CAPPED_KINDS = {"exec": False, "exec_t2": True, "exec_dma": False,
+                "exec_dmap": False}
+
+
+@pytest.mark.parametrize("kind", list(CAPPED_KINDS))
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_capped_kernels_equal_trimmed(dev, name, core, kind):
+    """K1, K2, K10 and K11 at static capacity (the run table from
+    capped_runs on the card, the count read from device memory, a CTA per
+    step slot): the trimmed launch's output bit for bit, one launch."""
+    kernel = get_kernel(name)
+    src_fm, tgt_geo = _blocks(dev, kernel)
+    paired = CAPPED_KINDS[kind]
+    keys = [1, 1, 2, 3, 3, 5, 5, 5, 7] + [0] * 23
+    gt, gs = _adjacent_groups(dev, keys)
+    fetch = {"exec": "dma_i", "exec_t2": "dma_i", "exec_dma": "dma",
+             "exec_dmap": "dma_p"}[kind]
+    out0 = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+    out0[1] = 7.25
+    trimmed = out0.clone()
+    if paired:
+        cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, trimmed,
+                                 core, fetch=fetch)
+    else:
+        cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core,
+                              fetch=fetch, out_fm=trimmed, final=False)
+    inst = cuda_lib.instance(name, core)
+    before = cuda_pairs.LAUNCHES[(kind, inst)]
+    checks = cuda_pairs.RunChecks()
+    capped = cuda_pairs.exec_pairs_capped(kernel, tgt_geo, src_fm, gt, gs,
+                                          checks, core, fetch, out0.clone(),
+                                          paired=paired)
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[(kind, inst)] == before + 1
+    assert checks.word(dev).tolist() == [0]
+    assert torch.equal(capped, trimmed)
+
+
+def _fused_problem(dev, name="grav3d", n=3000, seed=61):
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, seed, n)
+    return (kernel, _to(torch_parts(sx, sr, ss), dev),
+            _to(torch_parts(tx, tr), dev))
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_fused_graph_equals_split(dev, name):
+    """solve_dtt_fused on the card: one CUDA graph, captured after a
+    warm-up under sync debug mode "error"; its output bit for bit
+    prepare + solve_dtt's, in both forms; a replay on new inputs bit for
+    bit the split path on them; the first call's result untouched by the
+    second."""
+    dtt.clear_fused_cache()
+    kernel, srcs, targs = _fused_problem(dev, name)
+    cfg = SolverConfig(**SLICE_KW)
+    out, info = dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
+    graph = dtt.fused_graph(kernel, cfg, srcs, targs)
+    assert isinstance(graph.graph, torch.cuda.CUDAGraph)
+    assert len(dtt._FUSED) == 1
+    plan = treecode.prepare(kernel, cfg, srcs, targs)
+    ref, rinfo = dtt.solve_dtt(kernel, cfg, plan)
+    assert torch.equal(out, ref)
+    assert int(info.overflow) == int(rinfo.overflow) == 0
+    first = out.clone()
+    _, srcs2, targs2 = _fused_problem(dev, name, seed=62)
+    out2, _ = dtt.solve_dtt_fused(kernel, cfg, srcs2, targs2)
+    ref2, _ = dtt.solve_dtt(kernel, cfg, treecode.prepare(kernel, cfg,
+                                                          srcs2, targs2))
+    assert len(dtt._FUSED) == 1
+    assert torch.equal(out2, ref2)
+    assert torch.equal(out, first)
+    (tree, inv), _ = dtt.solve_dtt_fused(kernel, cfg, srcs, targs,
+                                         unscramble=False)
+    rtree, _ = dtt.solve_dtt(kernel, cfg, plan, unscramble=False)
+    assert torch.equal(tree, rtree) and torch.equal(inv, plan.tgt_inv)
+    dtt.clear_fused_cache()
+
+
+def test_fused_graph_raises_after_replay(dev, monkeypatch):
+    """A list corrupted inside the captured route (a target key out of
+    range) launches no work and raises the eager text after each
+    replay."""
+    from onbody_tpu_torch.traverse import exec as pexec, lists
+    dtt.clear_fused_cache()
+    kernel, srcs, targs = _fused_problem(dev, n=2000)
+    cfg = SolverConfig(**SLICE_KW)
+
+    def corrupted(pl, cap, group, slot_width):
+        pg = lists.group_pairs(pl, cap, group, slot_width)
+        return pg._replace(tgt=pg.tgt + 100000 * (pg.tgt != 0))
+    monkeypatch.setattr(pexec, "group_pairs", corrupted)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="out of range"):
+            dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
+    dtt.clear_fused_cache()
