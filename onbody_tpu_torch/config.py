@@ -147,11 +147,11 @@ def tuned_config(n: int, kernel: str = "grav3d") -> SolverConfig:
 
     These settings were tuned on one TPU v5e (onbody_tpu/config.py
     tuned_config); ROADMAP item 12 re-tunes them on the H100. Every
-    row's keys run through prepare + solve_dtt (the >= 4e7 row's
-    lean_plan and pregather fetch included); what that row still lacks
-    is the routine the reference runs it with, the subtree-chunked solve
-    of traverse/chunked.py (ROADMAP item 13), so here it is a
-    monolithic plan and must fit the card's memory."""
+    row's keys run through prepare + solve_dtt; the >= 4e7 row (lean
+    rows, pregather fetch) is meant for the routine the reference runs
+    it with, traverse/chunked.solve_dtt_chunked (16 chunks in
+    bench.py), which keeps one target subtree's arrays on the card at a
+    time."""
     cfg = _tuned_config_n(n)
     if kernel == "vort2d":
         cfg = cfg.replace(theta_dtt=max(cfg.theta_dtt, 1.4))

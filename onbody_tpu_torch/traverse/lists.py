@@ -262,6 +262,22 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
     return classify, prep
 
 
+def _defer_kids(cand, defer, nleaf_s: int, width: int,
+                compact: str = "scatter"):
+    """The next level's candidate row of each target from its deferred
+    candidates: children of deferred interior sources, deferred source
+    leaves riding along unrefined (sharing the first child slot), rows
+    compacted to `width` (_compact_rows' mode). Returns (rows,
+    overflow)."""
+    s_leaf = cand >= nleaf_s
+    keep_leaf = defer & s_leaf
+    split = defer & ~s_leaf
+    kids = torch.cat([torch.where(split, 2 * cand,
+                                  torch.where(keep_leaf, cand, 0)),
+                      torch.where(split, 2 * cand + 1, 0)], dim=1)
+    return _compact_rows(kids, width, compact)
+
+
 def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                      frontier_width: int, mac_geometry: str = "quant",
                      n_live: int = 0, leaf_pair2: bool = False,
@@ -345,13 +361,7 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
         all_src.append(out.reshape(-1))
         if t_is_leaf:
             break
-        s_leaf = cand >= nleaf_s
-        keep_leaf = defer & s_leaf
-        split = defer & ~s_leaf
-        kids = torch.cat([torch.where(split, 2 * cand,
-                                      torch.where(keep_leaf, cand, 0)),
-                          torch.where(split, 2 * cand + 1, 0)], dim=1)
-        nxt, ovc = _compact_rows(kids, W, compact)
+        nxt, ovc = _defer_kids(cand, defer, nleaf_s, W, compact)
         overflow = overflow + ovc
         if leaf_pair2 and l == levels_t - 1:
             ch_alive = ttree.alive[2 * nt:2 * nt + 2 * rows].view(rows, 2)
@@ -366,6 +376,129 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
     if leaf_pair2:
         return tgt, src, p2[0], p2[1], total_valid, overflow
     return tgt, src, total_valid, overflow
+
+
+def _dtt_lists_top(stree: Tree, ttree: Tree, theta: float, levels_s: int,
+                   split: int, frontier_width: int,
+                   mac_geometry: str = "quant"):
+    """Simultaneous descent of target levels 0..split-1 only (reference
+    _dtt_lists_top), the prefix shared by every subtree of the chunked
+    solve (traverse/chunked.py). Returns (tgt, src, cand, overflow):
+    the top levels' pairs (global ids, tgt on pad slots too) and the
+    deferred candidate rows (2^split, W) of the level-`split` subtree
+    roots, from which each subtree continues its own descent. Needs
+    split < levels_t (the roots are not leaves)."""
+    W = frontier_width
+    dev = ttree.x.device
+    nleaf_s = 1 << levels_s
+    classify, prep = _mk_classifier(stree, ttree, theta, nleaf_s,
+                                    mac_geometry)
+    all_tgt: List[torch.Tensor] = []
+    all_src: List[torch.Tensor] = []
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    cand = torch.zeros((1, W), dtype=torch.int64, device=dev)
+    cand[0, 0].fill_(1)
+    for l in range(split):
+        nt = 1 << l
+        tgeo = prep(ttree.x[nt:2 * nt], ttree.nr[nt:2 * nt])
+        cand = torch.where(ttree.alive[nt:2 * nt][:, None], cand, 0)
+        accept, expand, defer = classify(cand, tgeo, False)
+        out, ovc = _compact_rows(torch.where(accept, cand, 0), W)
+        overflow = overflow + ovc + expand.sum()
+        all_tgt.append(torch.arange(nt, 2 * nt, dtype=torch.int64,
+                                    device=dev)[:, None].expand(nt, W)
+                       .reshape(-1))
+        all_src.append(out.reshape(-1))
+        nxt, ovc = _defer_kids(cand, defer, nleaf_s, W)
+        overflow = overflow + ovc
+        cand = torch.repeat_interleave(nxt, 2, dim=0)
+    return torch.cat(all_tgt), torch.cat(all_src), cand, overflow
+
+
+def _dtt_lists_sub(stree: Tree, ttree: Tree, theta: float, cand0,
+                   root: int, levels_s: int, levels_t: int, split: int,
+                   frontier_width: int, mac_geometry: str = "quant",
+                   leaf_pair2: bool = False):
+    """Continue the descent for the one target subtree rooted at node
+    `root` (level `split`) from its deferred row cand0 (1, W) (reference
+    _dtt_lists_sub). Emits GLOBAL (tgt, src) pairs for target levels
+    split..levels_t of the subtree, tgt 0 on pad slots. Returns (tgt,
+    src, n_valid, overflow).
+
+    leaf_pair2: the leaf level's candidates would be the parents' rows
+    repeated twice with a vacuous classify, so emit one parent-keyed
+    list (p2_tgt, p2_src) instead, each entry standing for both children
+    leaf pairs; n_valid counts it once per alive child. Needs levels_s
+    <= levels_t and split <= levels_t - 1. Returns (tgt, src, p2_tgt,
+    p2_src, n_valid, overflow)."""
+    if leaf_pair2 and not (levels_s <= levels_t and split <= levels_t - 1):
+        raise ValueError("leaf_pair2 needs levels_s <= levels_t and a "
+                         "subtree root above the leaves")
+    W = frontier_width
+    dev = ttree.x.device
+    nleaf_s = 1 << levels_s
+    classify, prep = _mk_classifier(stree, ttree, theta, nleaf_s,
+                                    mac_geometry)
+    all_tgt: List[torch.Tensor] = []
+    all_src: List[torch.Tensor] = []
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    total_valid, overflow = zero, zero
+    cand = cand0
+    for l in range(split, levels_t + 1):
+        w = 1 << (l - split)
+        id0 = root << (l - split)
+        tgt_ids = torch.arange(id0, id0 + w, dtype=torch.int64, device=dev)
+        t_is_leaf = l == levels_t
+        cand = torch.where(ttree.alive[id0:id0 + w][:, None], cand, 0)
+        if t_is_leaf and levels_s <= levels_t:
+            # every candidate is a source leaf: leaf-leaf pairs accept
+            out = cand
+            total_valid = total_valid + (out != 0).sum()
+        else:
+            tgeo = prep(ttree.x[id0:id0 + w], ttree.nr[id0:id0 + w])
+            accept, expand, defer = classify(cand, tgeo, t_is_leaf)
+            out = torch.where(accept, cand, 0)
+            if t_is_leaf:
+                # deep source tree: refine remaining interior sources
+                out_ext = cand.new_zeros((w, W + 1))
+                out_cnt = cand.new_zeros((w,))
+                out_ext, out_cnt, ov0 = _append_rows(out_ext, out_cnt, out)
+                overflow = overflow + ov0
+                for _ in range(levels_s - levels_t):
+                    kids = torch.cat([torch.where(expand, 2 * cand, 0),
+                                      torch.where(expand, 2 * cand + 1, 0)],
+                                     dim=1)
+                    cand, ovc = _compact_rows(kids, W)
+                    overflow = overflow + ovc
+                    accept, expand, defer = classify(cand, tgeo, True)
+                    out_ext, out_cnt, ovc = _append_rows(
+                        out_ext, out_cnt, torch.where(accept, cand, 0))
+                    overflow = overflow + ovc
+                overflow = overflow + expand.sum()
+                out = out_ext[:, :W]
+                total_valid = total_valid + out_cnt.sum()
+            else:
+                out, ovc = _compact_rows(out, W)
+                overflow = overflow + ovc + expand.sum()
+                total_valid = total_valid + (out != 0).sum()
+        all_tgt.append(torch.where(out != 0, tgt_ids[:, None], 0)
+                       .reshape(-1))
+        all_src.append(out.reshape(-1))
+        if t_is_leaf:
+            break
+        nxt, ovc = _defer_kids(cand, defer, nleaf_s, W)
+        overflow = overflow + ovc
+        if leaf_pair2 and l == levels_t - 1:
+            # a dead right sibling is evaluated too (its rows are never
+            # read) but not counted: reals sort first, so count each
+            # parent's alive children
+            n_ch = ttree.alive[2 * id0:2 * id0 + 2 * w].view(w, 2).sum(1)
+            total_valid = total_valid + ((nxt != 0) * n_ch[:, None]).sum()
+            p2_tgt = torch.where(nxt != 0, tgt_ids[:, None], 0).reshape(-1)
+            return (torch.cat(all_tgt), torch.cat(all_src), p2_tgt,
+                    nxt.reshape(-1), total_valid, overflow)
+        cand = torch.repeat_interleave(nxt, 2, dim=0)
+    return torch.cat(all_tgt), torch.cat(all_src), total_valid, overflow
 
 
 def build_dtt_pairs_level(stree: Tree, ttree: Tree, theta: float,

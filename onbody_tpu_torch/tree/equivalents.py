@@ -159,12 +159,19 @@ def _check_one_part(width: int, order: int, pd: int) -> None:
             "yet (ROADMAP.md Queue 1 item 11)")
 
 
+# nodes per anterpolation batch: the factored contraction's largest
+# temporary, (points, ncp, ncp, SD) a node, is 72 KB at order 5 in 3D with
+# 512 points and SD 1 (19 GB for the 2^18 leaf parents of a 1e8 tree)
+_ANTERP_NODES = 4096
+
+
 def _proxy_levels(tree: Tree, x, r, s, order: int):
     """Interior levels bottom-up: yields (rows, nc, grid, eq_s, r_first)
     per level, the level's row slice, node centers (nseg, PD), proxy
     grid (nseg, M, PD), anterpolated proxy strengths (nseg, M, SD) and
     the radius of each node's first particle (the proxies' radius,
-    ref :349-354). s None (targets) yields eq_s None."""
+    ref :349-354). s None (targets) yields eq_s None. The anterpolation
+    runs _ANTERP_NODES nodes at a time, which bounds its temporaries."""
     pd = x.shape[1]
     M = (order + 1) ** pd
     n_pad = x.shape[0]
@@ -182,7 +189,11 @@ def _proxy_levels(tree: Tree, x, r, s, order: int):
             else:
                 src_pos = child_pos.reshape(nseg, 2 * M, pd)
                 src_str = child_str.reshape(nseg, 2 * M, sd)
-            eq_s = anterp_factored(src_pos, nc_l, ns_l, order, src_str)
+            eq_s = torch.cat([anterp_factored(
+                src_pos[i:i + _ANTERP_NODES], nc_l[i:i + _ANTERP_NODES],
+                ns_l[i:i + _ANTERP_NODES], order,
+                src_str[i:i + _ANTERP_NODES])
+                for i in range(0, nseg, _ANTERP_NODES)])
         yield sl, nc_l, grid, eq_s, r.view(nseg, n_pad >> l)[:, :1]
         child_pos, child_str = grid, eq_s
 
@@ -387,3 +398,60 @@ def target_geo_fm(tree: Tree, sorted_targs: Parts,
         geo[sl, :pd] = _parked(grid, nc_l, width).transpose(1, 2)
         geo[sl, pd] = r_first
     return geo
+
+
+def _target_geo_slab_impl(tree: Tree, x, r, root: int, order: int,
+                          levels: int, split: int,
+                          block_size: int) -> torch.Tensor:
+    """Owner-major target-geometry slab (R, 8, B) of the level-`split`
+    subtree rooted at node `root` (reference _target_geo_slab_impl).
+
+    Row layout is parallel.mesh.local_rows': rows [0, 2^split) the global
+    top nodes (their grids at the nodes' boxes, sizes floored at 1e-20,
+    radius the mean of r), then the subtree's levels split..levels, each
+    row as target_geo_fm writes it. x, r: the whole sorted targets (the
+    reference's x_base, for arrays that hold one subtree's particles, is
+    the out-of-core tiers', ROADMAP item 15)."""
+    pd = x.shape[1]
+    M = (order + 1) ** pd
+    nleaf = 1 << levels
+    width = block_size
+    ndev = 1 << split
+    R = ndev + (2 << (levels - split)) - 1
+    geo = x.new_zeros((R, 8, width))
+
+    def grid_rows(rows: slice, nc_l, ns_l, rad):
+        geo[rows, :pd] = _parked(_grid_positions(nc_l, ns_l, order), nc_l,
+                                 width).transpose(1, 2)
+        geo[rows, pd] = rad[:, None]
+
+    grid_rows(slice(0, ndev), tree.nc[:ndev], tree.ns[:ndev].clamp(min=1e-20),
+              r.mean().expand(ndev))
+    row = ndev
+    for l in range(split, levels + 1):
+        w = 1 << (l - split)
+        id0 = root << (l - split)
+        if l == levels:
+            p0 = (id0 - nleaf) * block_size
+            geo[row:row + w, :pd] = x[p0:p0 + w * block_size].view(
+                w, width, pd).transpose(1, 2)
+            geo[row:row + w, pd] = r[p0:p0 + w * block_size].view(w, width)
+        else:
+            # the per-node first-particle radius, from the global slot
+            # count of the level
+            n_lvl = (nleaf * block_size) >> l
+            p0 = (id0 - (1 << l)) * n_lvl
+            grid_rows(slice(row, row + w), tree.nc[id0:id0 + w],
+                      tree.ns[id0:id0 + w], r[p0:p0 + w * n_lvl:n_lvl])
+        row += w
+    return geo
+
+
+def target_geo_slab(tree: Tree, sorted_targs: Parts, root: int, order: int,
+                    split: int) -> torch.Tensor:
+    """(R, 8, B) owner-major target-geometry slab for subtree `root`
+    (reference target_geo_slab)."""
+    _check_one_part(tree.block_size, order, sorted_targs.pd)
+    return _target_geo_slab_impl(tree, sorted_targs.x, sorted_targs.r,
+                                 int(root), order, tree.levels, split,
+                                 tree.block_size)

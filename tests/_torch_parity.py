@@ -89,3 +89,27 @@ def jax_tree(t):
                    nr=jax_array(t.nr), x=jax_array(t.x), s=jax_array(t.s),
                    pr=jax_array(t.pr), alive=jax_array(t.alive),
                    levels=t.levels, block_size=t.block_size)
+
+
+class PairedSpy:
+    """Wraps cuda_pairs.exec_pairs_t2 (the chunked solve's paired leaf
+    pass, traverse/chunked.py): for each paired launch, records the
+    view's offset into its slab (in rows) and whether its rows 0/1 (slab
+    rows 1-2 on the shifted view), set to a sentinel just before the
+    launch, came out unchanged; then puts their values back."""
+
+    def __init__(self, run):
+        self.run, self.calls = run, []
+
+    def __call__(self, kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
+                 *a, **kw):
+        kept = out_fm[:2].clone()
+        sentinel = torch.full_like(kept, 7.0)
+        out_fm[:2] = sentinel
+        res = self.run(kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
+                       *a, **kw)
+        row = out_fm.shape[1] * out_fm.shape[2]
+        self.calls.append((out_fm.storage_offset() // row,
+                           torch.equal(out_fm[:2], sentinel)))
+        out_fm[:2] = kept
+        return res

@@ -18,13 +18,13 @@ import functools
 import pytest
 import torch
 
-from _torch_parity import (SLICE_KW, kernel_inputs, rel_rms, scale_rel_max,
-                           torch_parts)
+from _torch_parity import (SLICE_KW, PairedSpy, kernel_inputs, rel_rms,
+                           scale_rel_max, torch_parts)
 from onbody_tpu_torch.config import SolverConfig
 from onbody_tpu_torch.ops import cuda_direct, cuda_lib, cuda_pairs
 from onbody_tpu_torch.ops.kernels import get_kernel
 from onbody_tpu_torch.parts import Parts
-from onbody_tpu_torch.traverse import direct, dtt, treecode
+from onbody_tpu_torch.traverse import chunked, direct, dtt, treecode
 
 pytestmark = pytest.mark.cuda
 
@@ -858,3 +858,43 @@ def test_fused_graph_raises_after_replay(dev, monkeypatch):
         with pytest.raises(ValueError, match="out of range"):
             dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
     dtt.clear_fused_cache()
+
+
+# the chunked solve's executors by pair_fetch: the unpaired kernel, the
+# paired one
+CHUNKED_KINDS = {"pregather": ("exec_pre_seg", "exec_pre_t2_seg"),
+                 "dma_i": ("exec", "exec_t2")}
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+@pytest.mark.parametrize("fetch", list(CHUNKED_KINDS))
+def test_chunked_on_card_matches_cpu(dev, fetch, n_chunks, monkeypatch):
+    """solve_dtt_chunked on the card (K8 + K9 for pregather, K1 + K2 for
+    dma_i, the paired kernel on views one row into each slab) against
+    the same solve on the CPU's twins, N = 8192, block 128: rel-RMS
+    1e-5, n_valid and overflow equal; each paired launch left the view's
+    rows 0/1 (slab rows 1-2) as they were; no other executor launched."""
+    kernel = KER
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 64, 8192)
+    srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
+    cfg = SolverConfig(block_size=128, order=3, frontier_width=192,
+                       list_width=512, cap_groups_dtt=32, pair_group=8,
+                       pair_fetch=fetch, dtt_leaf_pair2=True)
+    cpu_out, cpu_info = chunked.solve_dtt_chunked(kernel, cfg, srcs, targs,
+                                                  n_chunks=n_chunks)
+    spy = PairedSpy(cuda_pairs.exec_pairs_t2)
+    monkeypatch.setattr(cuda_pairs, "exec_pairs_t2", spy)
+    cuda_pairs.LAUNCHES.clear()
+    out, info = chunked.solve_dtt_chunked(
+        kernel, cfg.replace(pair_backend="cuda"), _to(srcs, dev),
+        _to(targs, dev), n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    inst = cuda_lib.instance("grav3d", "rm")
+    kinds = CHUNKED_KINDS[fetch]
+    assert all(cuda_pairs.LAUNCHES[(k, inst)] > 0 for k in kinds)
+    assert {k for (k, _), v in cuda_pairs.LAUNCHES.items() if v} <= \
+        set(kinds) | {"exec_pre_reduce"}
+    assert spy.calls == [(1, True)] * n_chunks
+    assert int(info.overflow) == int(cpu_info.overflow) == 0
+    assert int(info.n_valid) == int(cpu_info.n_valid)
+    assert rel_rms(out.cpu(), cpu_out) <= 1e-5
