@@ -6,9 +6,21 @@ so a configuration written for one package reads the same in the other.
 Keys that are TPU schedules of the same result are accepted and run the
 one torch path: `tree_paired`, `tree_defer_rs`, `tree_fuse`, the
 `tree_span_top` prefix slicing, `tree_bisect_group`, `group_compact`,
-`pair_tile_g`, `mac_geometry` packing (the 16-bit quantized MAC geometry
-itself is kept, it decides the pair lists), `d2_mode` and
-`mxu_precision` (distances and contractions are always full fp32).
+`pair_tile_g`, `d2_mode` and `mxu_precision` (distances and
+contractions are always full fp32, the result of the reference's
+"highest"). `mac_geometry` is the reference's: "quant" (the source
+geometry quantized onto a shared 16-bit grid) or "f32" (exact); it
+decides the DTT's pair lists.
+
+`accum_dtype` float64 is the reference's accuracy tier (mycast
+semantics): the pair chain runs in double through the fp64 kernels
+K1-f64 (every `pair_fetch`, as the reference routes every fetch to its
+one fp64 executor; the sibling-paired leaf list is off) and K4-f64;
+`storage_dtype` float64 also keeps the particles, trees and proxies in
+double. Orders whose grids are wider than a block row (order 6 and 7
+in 3D at block 256, order 5 at block 128) split the proxies over
+extension rows (`tree/equivalents.py` n_eq_parts), as the reference
+does.
 
 `list_compact` orders the rows of the DTT lists as the reference does:
 `"scatter"` and `"sort"` keep each row's entries in order (the two
@@ -43,6 +55,8 @@ import torch
 PAIR_BACKENDS = ("auto", "cuda", "torch")
 PAIR_FETCHES = ("pregather", "dma", "dma_i", "dma_p", "static")
 LIST_COMPACTS = ("scatter", "sort", "idsort")
+MAC_GEOMETRIES = ("quant", "f32")
+FLOAT_DTYPES = (torch.float32, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +125,8 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
     """Raise NotImplementedError for keys whose paths are not ported.
 
     With a kernel, cfg.core_func must be one of its cores (vort2d and
-    vortgrad3d: rm, exp; vort3d also v2, on the torch path only: the
-    CUDA bodies raise for it, item 9); grav3d ignores core_func, as the
-    reference does."""
+    vortgrad3d: rm, exp; vort3d also v2); grav3d ignores core_func, as
+    the reference does."""
     def no(what, item):
         raise NotImplementedError(f"{what} is not ported yet "
                                   f"(ROADMAP.md Queue 1 item {item})")
@@ -137,8 +150,13 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
         no(f"dtt_traversal={cfg.dtt_traversal!r}", 11)
     if cfg.dtt_lists != "rows":
         no(f"dtt_lists={cfg.dtt_lists!r}", 17)
-    if cfg.accum_dtype != torch.float32 or cfg.storage_dtype != torch.float32:
-        no("float64 storage or accumulation", 9)
+    for key in ("accum_dtype", "storage_dtype"):
+        if getattr(cfg, key) not in FLOAT_DTYPES:
+            raise ValueError(f"{key} {getattr(cfg, key)!r}: one of "
+                             f"{FLOAT_DTYPES}")
+    if cfg.mac_geometry not in MAC_GEOMETRIES:
+        raise ValueError(f"mac_geometry {cfg.mac_geometry!r}: one of "
+                         f"{MAC_GEOMETRIES}")
     pair_backend(cfg)
 
 

@@ -9,8 +9,9 @@
 //
 // A per-source term that does not depend on the target is computed once
 // when the source block is staged (aux3), not per pair: sr^2 for RM,
-// corefac = 1/max(sr^3, TINY) for the exponential core. The 2D cores take
-// sr^2 and tr^2 (both cores need them).
+// corefac = 1/max(sr^3, TINY) for the exponential core, sr^4 for
+// Vatistas (3D only). The 2D cores take sr^2 and tr^2 (both cores need
+// them).
 #pragma once
 
 namespace onbody {
@@ -81,6 +82,21 @@ struct CoreExp {
     const float mid = ood2 * (1.f - expf(-reld2));
     const float out = reld2 > 16.f ? ood2 : mid;
     return reld2 < 0.001f ? corefac : out;
+  }
+};
+
+// Vatistas n = 2 (CoreFunc3d.hpp:185-198), the 3D velocity core only:
+// (d^4 + sr^4)^-3/4 as rsqrt(max(d^4 + sr^4, TINY))^1.5, the guard of
+// v2_3d, so the d2 = 0 self-interaction stays finite for any radius.
+struct CoreV2 {
+  __device__ static float aux3(float sr) {
+    const float s2 = sr * sr;
+    return s2 * s2;
+  }
+
+  __device__ static float c3(float d2, float s4) {
+    const float rsqd = rsqrtf(fmaxf(fmaf(d2, d2, s4), kTiny));
+    return rsqd * sqrtf(rsqd);
   }
 };
 

@@ -23,6 +23,13 @@
 //                              resident CTAs per SM, ring stages,
 //                              registers and local bytes per thread
 //   onbody_direct_occupancy_<INST>  the same of K4's direct kernel
+//   onbody_exec64_<INST>   K1-f64, K1 on double rows and sums (fp64.cuh),
+//                          K1's arguments over doubles
+//   onbody_direct64_<INST>         K4-f64, K4 in double (fp64.cuh)
+//   onbody_direct64_reduce_<INST>  K4-f64's ordered reduction
+// The occupancy entry also reports K1-f64 (kind 7) and K4-f64 (kind 8).
+// An instantiation is a (workload, core): BODY its fp32 body, BODY64 the
+// same body in double (body64.cuh).
 // K1, K2, K10 and K11 take the run count twice: n_runs_dev, the count in
 // device memory (null: the eager wrappers' trimmed tables, n_runs runs),
 // and n_runs, the grid (with n_runs_dev: the list's static capacity; CTAs
@@ -32,9 +39,28 @@
 #pragma once
 
 #include "direct.cuh"
+#include "fp64.cuh"
 #include "pairs.cuh"
 
-#define ONBODY_ENTRIES(INST, BODY)                                         \
+namespace onbody {
+
+// occupancy_of K1-f64 at B (kind 7) or of K4-f64 (kind 8)
+template <class Body64>
+int occupancy64(int kind, int B, int* info) {
+  if (kind == 8) {
+    return occupancy_of((const void*)direct64_kernel<Body64>,
+                        kDirect64Threads, direct64_smem<Body64>(), 1, info);
+  }
+  int threads, grid_y;
+  size_t smem;
+  exec64_config<Body64>(B, &threads, &grid_y, &smem);
+  return occupancy_of((const void*)exec64_runs<Body64>, threads, smem, 1,
+                      info);
+}
+
+}  // namespace onbody
+
+#define ONBODY_ENTRIES(INST, BODY, BODY64)                                 \
   extern "C" int onbody_exec_##INST(                                       \
       const float* tgt_geo, const float* src_fm, float* out,               \
       const int* run_tgt, const int* run_off, const int* pair_s,           \
@@ -111,7 +137,8 @@
   }                                                                        \
   extern "C" int onbody_occupancy_##INST(int kind, int B, int C, int G,    \
                                          int* info) {                      \
-    return onbody::occupancy<BODY>(kind, B, C, G, info);                   \
+    return kind >= 7 ? onbody::occupancy64<BODY64>(kind, B, info)          \
+                     : onbody::occupancy<BODY>(kind, B, C, G, info);       \
   }                                                                        \
   extern "C" int onbody_direct_##INST(const float* tgt, const float* src,  \
                                       float* dst, int M, int S,            \
@@ -130,4 +157,27 @@
                                 onbody::kDirectThreads,                    \
                                 onbody::direct_smem<BODY>(),               \
                                 onbody::kDirectStages, info);              \
+  }                                                                        \
+  extern "C" int onbody_exec64_##INST(                                     \
+      const double* tgt_geo, const double* src_fm, double* out,            \
+      const int* run_tgt, const int* run_off, const int* pair_s,           \
+      const int* n_runs_dev, int n_runs, int B, int C, int G,              \
+      int od8, void* stream) {                                             \
+    return onbody::launch_exec64<BODY64>(tgt_geo, src_fm, out, run_tgt,    \
+                                         run_off, pair_s, n_runs_dev,      \
+                                         n_runs, B, C, G, od8, stream);    \
+  }                                                                        \
+  extern "C" int onbody_direct64_##INST(const double* tgt,                 \
+                                        const double* src, double* dst,    \
+                                        int M, int S, int splits,          \
+                                        void* stream) {                    \
+    return onbody::launch_direct64<BODY64>(tgt, src, dst, M, S, splits,    \
+                                           stream);                        \
+  }                                                                        \
+  extern "C" int onbody_direct64_reduce_##INST(double* out,                \
+                                               const double* partials,     \
+                                               int M, int splits,          \
+                                               void* stream) {             \
+    return onbody::launch_direct64_reduce<BODY64>(out, partials, M,        \
+                                                  splits, stream);         \
   }

@@ -1,5 +1,6 @@
-// K1, K2, K4, K8-K12 with the grav3d body (one translation unit per
-// workload, so the build compiles the workloads in parallel), and K13:
+// K1, K2, K4, K8-K12 with the grav3d body and their fp64 forms K1-f64
+// and K4-f64 (one translation unit per workload, so the build compiles
+// the workloads in parallel), and K13:
 // K10 on the four ablated grav3d bodies of grav3d_ablate_body.cuh, entry
 // points onbody_exec_ablate_<mode> (K10's arguments but the device run
 // count: K13 runs on trimmed tables, so its launch passes null) and
@@ -8,7 +9,7 @@
 #include "grav3d_ablate_body.cuh"
 #include "grav3d_body.cuh"
 
-ONBODY_ENTRIES(grav3d, onbody::Grav3d)
+ONBODY_ENTRIES(grav3d, onbody::Grav3d, onbody::Grav3dF64)
 
 #define ONBODY_ABLATE(MODE, BODY)                                          \
   extern "C" int onbody_exec_ablate_##MODE(                                \

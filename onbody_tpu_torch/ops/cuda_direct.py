@@ -12,6 +12,10 @@ were split, an ordered reduction of the splits' partial sums
 (`direct_reduce`). The wrapper picks the split count on the host
 (`plan_splits`, from the occupancy query: `splits_for`);
 `direct_split_torch` is the plain twin of the split path.
+
+K4-f64 (accum_dtype float64, csrc/fp64.cuh: "direct64" and
+"direct64_reduce") is K4's plan in double: the inputs promoted once
+(exact), double partials added in split order.
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ from onbody_tpu_torch.ops.cuda_pairs import PREGATHER_BYTES
 from onbody_tpu_torch.ops.kernels import Kernel, featurize
 
 # kernel launches by the wrapper, keyed (kind, instance) with kind
-# "direct" (the kernel) or "direct_reduce" (its reduction) and the
-# instance as cuda_lib.instance names it (reset by callers that count a
-# run)
+# "direct" (the kernel) or "direct_reduce" (its reduction), or their fp64
+# forms "direct64" and "direct64_reduce", and the instance as
+# cuda_lib.instance names it (reset by callers that count a run)
 LAUNCHES = collections.Counter()
 # the twin's (targets, sources) tile: bounds its (T, S) temporaries
 _TILE_T, _TILE_S = 1024, 4096
@@ -51,11 +55,17 @@ def _check_shapes(kernel: Kernel, tx, tr, sx, sr, ss):
                              f"{shape}, got {tuple(t.shape)}")
 
 
-def direct_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm"):
-    """Plain twin of K4: tx (M, PD), tr (M,), sx (S, PD), sr (S,),
-    ss (S, SD) -> (M, OD), tiled so memory stays bounded. tr is read
-    only by kernels that use target radii (vort2d)."""
+def direct_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
+                 accum_dtype=None):
+    """Plain twin of K4 (and K4-f64): tx (M, PD), tr (M,), sx (S, PD),
+    sr (S,), ss (S, SD) -> (M, OD), tiled so memory stays bounded,
+    computed in the inputs' type or, when given, in accum_dtype (the
+    inputs promoted to it, as the reference's jnp direct does). tr is
+    read only by kernels that use target radii (vort2d)."""
     _check_shapes(kernel, tx, tr, sx, sr, ss)
+    if accum_dtype is not None:
+        tx, tr, sx, sr, ss = (a.to(accum_dtype) for a in (tx, tr, sx, sr,
+                                                          ss))
     srcT = featurize(kernel.name, sx, sr, ss, pad8=False)
     out = tx.new_zeros((tx.shape[0], kernel.od))
     for t0 in range(0, tx.shape[0], _TILE_T):
@@ -82,35 +92,39 @@ def split_bounds(s: int, splits: int):
 
 
 def plan_splits(m: int, s: int, od: int, ctas_per_sm: int, sms: int,
-                scratch_bytes: int = SCRATCH_BYTES) -> int:
-    """K4's split planner: the number of source splits for M targets and
-    S sources. The smallest count whose grid (target tiles of TILE_T x
-    splits) fills SPLIT_WAVES waves of ctas_per_sm resident CTAs on `sms`
-    SMs, at most one split per chunk and capped so that the partial
-    slabs (splits x M x OD floats) fit in scratch_bytes; 1 when the tiles
-    alone fill the waves."""
+                scratch_bytes: int = SCRATCH_BYTES,
+                itemsize: int = 4) -> int:
+    """K4's (and K4-f64's) split planner: the number of source splits for
+    M targets and S sources. The smallest count whose grid (target tiles
+    of TILE_T x splits) fills SPLIT_WAVES waves of ctas_per_sm resident
+    CTAs on `sms` SMs, at most one split per chunk and capped so that the
+    partial slabs (splits x M x OD values of itemsize bytes) fit in
+    scratch_bytes; 1 when the tiles alone fill the waves."""
     chunks = -(-s // CHUNK_S)
     tiles = -(-m // TILE_T)
     want = -(-SPLIT_WAVES * sms * max(ctas_per_sm, 1) // max(tiles, 1))
-    cap = scratch_bytes // (4 * max(m, 1) * od)
+    cap = scratch_bytes // (itemsize * max(m, 1) * od)
     return max(1, min(want, chunks, cap))
 
 
 @functools.cache
-def _resident(inst: str, device_index: int):
+def _resident(kind: str, inst: str, device_index: int):
     with torch.cuda.device(device_index):
-        ctas = cuda_lib.occupancy("direct", inst, 0, 0, 0)["ctas_per_sm"]
+        ctas = cuda_lib.occupancy(kind, inst, 0, 0, 0)["ctas_per_sm"]
         sms = torch.cuda.get_device_properties(
             device_index).multi_processor_count
     return ctas, sms
 
 
-def splits_for(kernel: Kernel, core: str, m: int, s: int, device):
-    """plan_splits with the card's SMs and K4's resident CTAs per SM
-    (the CUDA occupancy calculator)."""
-    ctas, sms = _resident(cuda_lib.instance(kernel.name, core),
+def splits_for(kernel: Kernel, core: str, m: int, s: int, device,
+               kind: str = "direct"):
+    """plan_splits with the card's SMs and the resident CTAs per SM (the
+    CUDA occupancy calculator) of K4 (kind "direct") or K4-f64
+    ("direct64")."""
+    ctas, sms = _resident(kind, cuda_lib.instance(kernel.name, core),
                           device.index or 0)
-    return plan_splits(m, s, kernel.od, ctas, sms)
+    return plan_splits(m, s, kernel.od, ctas, sms,
+                       itemsize=8 if kind == "direct64" else 4)
 
 
 def reduce_splits_torch(partials):
@@ -143,37 +157,50 @@ def layout(kernel: Kernel, tx, tr, sx, sr, ss):
     return tgt, src
 
 
+def _kind(base: str, dtype) -> str:
+    """K4's kind ("direct", "direct_reduce") for inputs of `dtype`: the
+    fp64 form's for float64."""
+    if dtype == torch.float64:
+        return base.replace("direct", "direct64")
+    return base
+
+
 def launch_kernel(kernel: Kernel, core: str, tgt, src, dst,
                   splits: int) -> None:
-    """K4's kernel alone on laid-out inputs (`layout`): dst is the output
-    (M, OD) for one split, else the scratch (splits, M, OD)."""
+    """K4's kernel alone on laid-out inputs (`layout`), K4-f64's on
+    float64 ones: dst is the output (M, OD) for one split, else the
+    scratch (splits, M, OD)."""
     inst = cuda_lib.instance(kernel.name, core)
     m, s = tgt.shape[1], src.shape[1]
-    name = cuda_lib.entry("direct", inst)
+    kind = _kind("direct", tgt.dtype)
+    name = cuda_lib.entry(kind, inst)
     rc = getattr(cuda_lib.lib(), name)(
         tgt.data_ptr(), src.data_ptr(), dst.data_ptr(), m, s, splits,
         cuda_lib.stream_ptr(dst.device))
     cuda_lib.check(rc, name)
-    LAUNCHES[("direct", inst)] += 1
+    LAUNCHES[(kind, inst)] += 1
 
 
 def reduce_splits_cuda(kernel: Kernel, core: str, out, partials) -> None:
-    """K4's ordered reduction: out (M, OD) = the partial slabs (splits,
-    M, OD) summed in split order."""
+    """K4's (K4-f64's, on float64) ordered reduction: out (M, OD) = the
+    partial slabs (splits, M, OD) summed in split order."""
     inst = cuda_lib.instance(kernel.name, core)
-    name = cuda_lib.entry("direct_reduce", inst)
+    kind = _kind("direct_reduce", out.dtype)
+    name = cuda_lib.entry(kind, inst)
     rc = getattr(cuda_lib.lib(), name)(
         out.data_ptr(), partials.data_ptr(), out.shape[0],
         partials.shape[0], cuda_lib.stream_ptr(out.device))
     cuda_lib.check(rc, name)
-    LAUNCHES[("direct_reduce", inst)] += 1
+    LAUNCHES[(kind, inst)] += 1
 
 
 def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
-                splits: int = None):
-    """Direct sum, shapes as direct_torch. CUDA tensors launch K4; CPU
-    tensors take the twin; anything else raises. `splits` forces the
-    number of source splits (None: splits_for's).
+                splits: int = None, accum_dtype=torch.float32):
+    """Direct sum, shapes as direct_torch, in accum_dtype. CUDA tensors
+    launch K4 (float32: the inputs must be float32) or K4-f64 (float64:
+    the inputs promoted once, exact); CPU tensors take the twin in
+    accum_dtype; anything else raises. `splits` forces the number of
+    source splits (None: splits_for's).
 
     K4 replaces onbody_tpu/ops/pallas_direct.py:direct_pallas. It is
     bound by the SM's FP32/MUFU rates over the operations each pair
@@ -183,30 +210,38 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
     is read from device memory once per 512 targets. When the target
     tiles cannot fill the card, the sources are split over CTAs and the
     splits' partial sums are added in split order by a second kernel
-    (csrc/direct.cuh)."""
+    (csrc/direct.cuh). K4-f64 is the same plan in double
+    (csrc/fp64.cuh: one chunk staged at a time, no ring), replacing the
+    reference's fp64 direct, traverse/direct.py:direct (:65-102) at
+    accum_dtype=float64; bound by the pairs' FP64 operations."""
     devs = {t.device for t in (tx, tr, sx, sr, ss)}
     if len(devs) != 1:
         raise ValueError(f"direct: tensors on several devices {devs}")
     dev = devs.pop()
+    if accum_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"direct: accum_dtype {accum_dtype}")
     if dev.type == "cpu":
-        return direct_torch(kernel, tx, tr, sx, sr, ss, core)
+        return direct_torch(kernel, tx, tr, sx, sr, ss, core, accum_dtype)
     if dev.type != "cuda":
         raise ValueError(f"direct: no kernel for device {dev}")
     cuda_lib.instance(kernel.name, core)  # raises for a core without one
     _check_shapes(kernel, tx, tr, sx, sr, ss)
+    if accum_dtype == torch.float64:
+        tx, tr, sx, sr, ss = (a.double() for a in (tx, tr, sx, sr, ss))
     for name, t in (("tx", tx), ("tr", tr), ("sx", sx), ("sr", sr),
                     ("ss", ss)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"direct: {name} must be float32, got "
+        if t.dtype != accum_dtype:
+            raise ValueError(f"direct: {name} must be {accum_dtype}, got "
                              f"{t.dtype}")
     m, s = tx.shape[0], sx.shape[0]
     if max(m, s) >= 2 ** 31:
         raise ValueError("direct: sizes must fit in int32")
-    out = torch.empty((m, kernel.od), dtype=torch.float32, device=dev)
+    out = torch.empty((m, kernel.od), dtype=accum_dtype, device=dev)
     if m == 0:
         return out
     if splits is None:
-        splits = splits_for(kernel, core, m, s, dev)
+        splits = splits_for(kernel, core, m, s, dev,
+                            _kind("direct", accum_dtype))
     elif splits < 1:
         raise ValueError(f"direct: {splits} splits, need >= 1")
     if -(-m // TILE_T) * splits >= 2 ** 31:
@@ -215,7 +250,7 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
     if splits == 1:
         launch_kernel(kernel, core, tgt, src, out, 1)
         return out
-    partials = torch.empty((splits, m, kernel.od), dtype=torch.float32,
+    partials = torch.empty((splits, m, kernel.od), dtype=accum_dtype,
                            device=dev)
     launch_kernel(kernel, core, tgt, src, partials, splits)
     reduce_splits_cuda(kernel, core, out, partials)

@@ -2,11 +2,13 @@
 
 The sources in `csrc/` have a plain C interface. Each workload's
 translation unit (`grav3d.cu`, `vort2d.cu`, `vort3d.cu`,
-`vortgrad3d.cu`) instantiates the executor (K1, K2, K8-K12; K8 and K9
-each a segment kernel and an ordered reduction, which K12 shares with
-K8 at one step per segment) and direct (K4, a
+`vortgrad3d.cu`) instantiates, for each of its cores, the executor (K1,
+K2, K8-K12; K8 and K9 each a segment kernel and an ordered reduction,
+which K12 shares with K8 at one step per segment) and direct (K4, a
 kernel and an ordered reduction of its source splits) templates
-(`pairs.cuh`, `direct.cuh`) on its body, and `grav3d.cu`
+(`pairs.cuh`, `direct.cuh`) on its body, and the fp64 executor K1-f64
+and direct sum K4-f64 (with its reduction; `fp64.cuh`) on the same body
+in double (`body64.cuh`), and `grav3d.cu`
 also K13, K10's template on the four ablated grav3d bodies
 (`grav3d_ablate_body.cuh`); nvcc compiles
 the units in parallel for sm_90a and links them into
@@ -33,7 +35,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # one translation unit per workload
 SOURCES = ("grav3d.cu", "vort2d.cu", "vort3d.cu", "vortgrad3d.cu")
 HEADERS = ("core.cuh", "body.cuh", "async_copy.cuh", "pairs.cuh",
-           "direct.cuh", "entries.cuh",
+           "direct.cuh", "entries.cuh", "body64.cuh", "fp64.cuh",
            "grav3d_body.cuh", "grav3d_ablate_body.cuh", "vort2d_body.cuh",
            "vort3d_body.cuh", "vortgrad3d_body.cuh")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -41,28 +43,32 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "libonbody_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# core_func values with a CUDA body (core.cuh); grav3d has no core
-CUDA_CORES = ("rm", "exp")
+# core_func values with a CUDA body (core.cuh), by workload; grav3d has
+# no core (its one instantiation is listed under "rm")
+CUDA_CORES = {"grav3d": ("rm",), "vort2d": ("rm", "exp"),
+              "vort3d": ("rm", "exp", "v2"), "vortgrad3d": ("rm", "exp")}
+# (workload, core) of every compiled instantiation
+INSTANCE_CORES = tuple((k, c) for k, cs in CUDA_CORES.items() for c in cs)
 # K8 and K9 are each a segment kernel ("exec_pre_seg", "exec_pre_t2_seg")
 # and the ordered reduction they share ("exec_pre_reduce"); K12
 # ("exec_static") is K8's segment kernel at one step per segment and
 # launches the same reduction; K4 is the
 # direct kernel ("direct") and the ordered reduction of its source
-# splits ("direct_reduce")
+# splits ("direct_reduce"); K1-f64 ("exec64") and K4-f64 ("direct64",
+# "direct64_reduce") are the fp64 forms of K1 and K4
 KINDS = ("exec", "exec_t2", "direct", "direct_reduce", "exec_pre_seg",
          "exec_pre_t2_seg", "exec_pre_reduce", "exec_dma", "exec_dmap",
-         "exec_static")
+         "exec_static", "exec64", "direct64", "direct64_reduce")
+# the kinds that run on double rows and sums
+F64_KINDS = ("exec64", "direct64", "direct64_reduce")
 # kinds whose shared memory and residency `occupancy` reports, by the
 # code the C entry point takes (K4's "direct" has an entry of its own)
 OCCUPANCY_KINDS = {"exec_dma": 0, "exec_dmap": 1, "exec_static": 2,
                    "exec_pre_seg": 3, "exec_pre_t2_seg": 4, "exec": 5,
-                   "exec_t2": 6}
+                   "exec_t2": 6, "exec64": 7, "direct64": 8}
 # K13's modes: entry points onbody_exec_ablate_<mode> and
 # onbody_occupancy_ablate_<mode>, grav3d only
 ABLATE_MODES = ("dma", "d2", "norsqrt", "full")
-INSTANCES = ("grav3d",) + tuple(f"{k}_{c}" for k in ("vort2d", "vort3d",
-                                                     "vortgrad3d")
-                                for c in CUDA_CORES)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,6 +87,9 @@ _ARGTYPES = {
     "exec_dmap": [_P] * 7 + [_I] * 5 + [_P],
     "exec_ablate": [_P] * 6 + [_I] * 5 + [_P],
     "exec_static": [_P] * 10 + [_I] * 5 + [_P],
+    "exec64": [_P] * 7 + [_I] * 5 + [_P],
+    "direct64": [_P] * 3 + [_I] * 3 + [_P],
+    "direct64_reduce": [_P] * 2 + [_I] * 2 + [_P],
     "occupancy": [_I] * 4 + [_P],
     "direct_occupancy": [_P],
 }
@@ -89,15 +98,17 @@ _ARGTYPES = {
 def instance(kernel_name: str, core: str) -> str:
     """The compiled instantiation of a (workload, core): 'grav3d' (the
     gravity body has no core) or '<workload>_<core>'. Raises for a core
-    without a CUDA body."""
+    the workload has no CUDA body for."""
     if kernel_name == "grav3d":
         return "grav3d"
-    if core not in CUDA_CORES:
-        raise NotImplementedError(
-            f"core_func {core!r} has no CUDA body yet (ROADMAP.md Queue 1 "
-            "item 9); the CUDA kernels take core_func in "
-            f"{CUDA_CORES}")
+    if core not in CUDA_CORES[kernel_name]:
+        raise ValueError(f"core_func {core!r}: the CUDA bodies of "
+                         f"{kernel_name} take one of "
+                         f"{CUDA_CORES[kernel_name]}")
     return f"{kernel_name}_{core}"
+
+
+INSTANCES = tuple(instance(k, c) for k, c in INSTANCE_CORES)
 
 
 def entry(kind: str, inst: str) -> str:
@@ -187,8 +198,9 @@ def lib() -> ctypes.CDLL:
 def occupancy(kind: str, inst: str, b: int, c: int, g: int) -> dict:
     """Dynamic shared memory per CTA (bytes), resident CTAs per SM, ring
     stages, registers per thread and local (spill) bytes per thread of a
-    K1/K2, K10/K11/K12 or K8/K9 segment launch at (B, C, G) (a kind of
-    OCCUPANCY_KINDS), or of a K4 launch (kind "direct"; B, C, G unused),
+    K1/K2, K10/K11/K12, K8/K9 segment or K1-f64 launch at (B, C, G) (a
+    kind of OCCUPANCY_KINDS; K4-f64's "direct64" takes none of them), or
+    of a K4 launch (kind "direct"; B, C, G unused),
     from the CUDA occupancy calculator and the kernel's attributes. kind
     "ablate_<mode>" (inst "grav3d") reports K13's launch of that mode."""
     info = (ctypes.c_int * 5)()

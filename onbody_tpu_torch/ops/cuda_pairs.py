@@ -36,6 +36,12 @@ capacity, the fused solve's (traverse/dtt.py solve_dtt_fused): the run
 table made on the list's device (`capped_runs`), K1/K2/K10/K11 launched
 with the run count in device memory, the id checks collected in a
 `RunChecks` and read once after the solve; nothing waits on the host.
+
+The accuracy tier (accum_dtype float64): double source rows run K1-f64
+(`exec_pairs64_cuda`, csrc/fp64.cuh) through both front doors whatever
+the fetch, as the reference routes every fetch to its one fp64 executor
+(traverse/exec.py:151-152); there is no paired fp64 executor, the
+solvers turn the paired leaf list off there.
 """
 
 from __future__ import annotations
@@ -128,12 +134,17 @@ def _twin_add(kernel: Kernel, tgt_geo, out_fm, rows, src_block, group: int,
 
 
 def exec_pairs_torch(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
-                     out_fm=None, final: bool = True, core: str = "rm"):
-    """Plain twin of K1: per chunk of steps, gather the target blocks and
-    each group slot's source blocks, evaluate the batched tiles with the
-    kernel's per-pair form, and index_add_ them into their rows (the
-    reference's traverse/exec.py:_exec_groups_xla_chunked). Pad steps are
-    dropped."""
+                     out_fm=None, final: bool = True, core: str = "rm",
+                     accum_dtype=None):
+    """Plain twin of K1 (and of K10, K11 and K1-f64): per chunk of steps,
+    gather the target blocks and each group slot's source blocks,
+    evaluate the batched tiles with the kernel's per-pair form, and
+    index_add_ them into their rows (the reference's
+    traverse/exec.py:_exec_groups_xla_chunked). Pad steps are dropped.
+    Computes in the rows' type, or in accum_dtype (the rows promoted to
+    it) when given, as the reference's jnp executor does."""
+    if accum_dtype is not None:
+        tgt_geo, src_fm = tgt_geo.to(accum_dtype), src_fm.to(accum_dtype)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
     keep = group_t != 0
@@ -354,10 +365,10 @@ def seg_steps_for(kind: str, inst: str, n_steps: int, b: int, c: int,
 
 
 def _check_layout(kernel: Kernel, tgt_geo, out_fm, c: int, paired: bool,
-                  **tensors):
+                  dtype=torch.float32, **tensors):
     """Shapes and types every executor kernel needs: tgt_geo (NN, 8, B),
     out_fm (NN, od8, B), C source rows >= the body's, all contiguous
-    float32."""
+    `dtype` (float32; K1-f64 float64)."""
     nn_t, rows_t, b = tgt_geo.shape
     rows = FM_ROWS[kernel.name]
     if rows_t != 8 or c < rows:
@@ -368,9 +379,9 @@ def _check_layout(kernel: Kernel, tgt_geo, out_fm, c: int, paired: bool,
         raise ValueError(f"pair executor: out_fm {tuple(out_fm.shape)}, "
                          f"expected {(nn_t, od8(kernel), b)}")
     for name, t in dict(tgt_geo=tgt_geo, out_fm=out_fm, **tensors).items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
+        if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"pair executor: {name} must be contiguous "
-                             f"float32, got {t.dtype}")
+                             f"{dtype}, got {t.dtype}")
     if b > 2048:
         raise ValueError(f"pair executor: block width {b} > 2048")
     if paired and nn_t % 2:
@@ -378,14 +389,14 @@ def _check_layout(kernel: Kernel, tgt_geo, out_fm, c: int, paired: bool,
 
 
 def _check_exec(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
-                paired: bool):
+                paired: bool, dtype=torch.float32):
     nn_t, _, b = tgt_geo.shape
     nn_s, c, b_s = src_fm.shape
     if b_s != b:
         raise ValueError(f"pair executor {kernel.name}: tgt_geo "
                          f"{tuple(tgt_geo.shape)} and src_fm "
                          f"{tuple(src_fm.shape)} differ in block width")
-    _check_layout(kernel, tgt_geo, out_fm, c, paired, src_fm=src_fm)
+    _check_layout(kernel, tgt_geo, out_fm, c, paired, dtype, src_fm=src_fm)
     if group_s.ndim != 2 or group_t.shape[0] != group_s.shape[0]:
         raise ValueError("pair executor: group_t (P,) and group_s (P, G) "
                          "disagree")
@@ -410,7 +421,7 @@ def _check_targets(name: str, run_tgt, nn_keys: int):
 def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
             out_fm, runs=None) -> bool:
     """Run one launch of a kernel that fetches by id (K1 "exec", K2
-    "exec_t2", K10 "exec_dma", K11 "exec_dmap", K13
+    "exec_t2", K10 "exec_dma", K11 "exec_dmap", K1-f64 "exec64", K13
     "exec_ablate_<mode>"); False when the list has no real step. runs
     None: the run table is made here, checked on the host (raising at
     once) and launched at its trimmed count. runs (CappedRuns, K1/K2/
@@ -422,7 +433,8 @@ def _launch(kind: str, kernel, core, tgt_geo, src_fm, group_t, group_s,
     ablate = kind.startswith("exec_ablate_")
     name = f"onbody_{kind}" if ablate else cuda_lib.entry(kind, inst)
     _one_cuda_device(name, tgt_geo, src_fm, group_t, group_s, out_fm)
-    _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired)
+    _check_exec(kernel, tgt_geo, src_fm, group_t, group_s, out_fm, paired,
+                torch.float64 if kind == "exec64" else torch.float32)
     _, c, b = src_fm.shape
     if (ablate or kind in ("exec_dma", "exec_dmap")) and (
             b % 4 or src_fm.data_ptr() % 16):
@@ -707,6 +719,35 @@ def exec_pairs_cuda_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     return out_fm
 
 
+def exec_pairs64_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
+                      out_fm=None, final: bool = True, core: str = "rm"):
+    """The unpaired grouped executor in double, the accuracy tier's: the
+    rows promoted to float64 once (exact; a no-op on double rows), then
+    CUDA tensors launch K1-f64 and CPU tensors take exec_pairs_torch in
+    float64. Adds into out_fm (float64 zeros when None) and returns it,
+    or with final=True the point-major (NN_t, B, OD) view.
+
+    K1-f64 replaces the reference's fp64 executor, traverse/exec.py
+    exec_pairs_jnp, to which every fetch goes at accum_dtype=float64
+    (exec.py:151-152), standing where onbody_tpu/ops/pallas_pairs.py:
+    _exec_chunk (:623) stands in fp32. d, |d|^2, the core and the sums
+    are double. One CTA per run of a target row, one target point per
+    thread, each source block staged synchronously into shared memory
+    as double rows and summed by every thread into its partial, the
+    partials added in block order onto the row once (csrc/fp64.cuh).
+    Bound by the pairs' FP64 operations (64 FP64 lanes an SM) and the
+    double rsqrt."""
+    if tgt_geo.device.type == "cpu":
+        return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t, group_s,
+                                out_fm, final, core, torch.float64)
+    tgt_geo, src_fm = tgt_geo.double(), src_fm.double()
+    if out_fm is None:
+        out_fm = _zeros_fm(kernel, tgt_geo)
+    _launch("exec64", kernel, core, tgt_geo, src_fm.contiguous(), group_t,
+            group_s, out_fm)
+    return _finish(kernel, out_fm, final)
+
+
 def exec_pairs_pre_cuda(kernel: Kernel, tgt_geo, src_gathered, group_t,
                         out_fm=None, final: bool = True, core: str = "rm",
                         group: int = GROUP, n_slots=None, seg_steps=None,
@@ -885,9 +926,18 @@ def exec_pairs(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     of steps contiguous and runs K8; 'static' does the same and runs
     K12; 'dma_i' runs K1, 'dma' K10 and 'dma_p' K11, which fetch by
     source id. CPU tensors, or twin=True, take the plain twins through
-    the same chunking. Adds into out_fm (zeros when None); final=True
-    returns (NN_t, B, OD)."""
+    the same chunking. Double source rows (the accuracy tier) run K1-f64
+    whatever the fetch (tgt_geo promoted). Adds into out_fm (zeros when
+    None); final=True returns (NN_t, B, OD)."""
     _check_fetch(fetch)
+    if src_fm.dtype == torch.float64:
+        # the accuracy tier: K1-f64 for every fetch
+        if twin:
+            return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t,
+                                    group_s, out_fm, final, core,
+                                    torch.float64)
+        return exec_pairs64_cuda(kernel, tgt_geo, src_fm, group_t, group_s,
+                                 out_fm, final, core)
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
     if fetch in ("pregather", "static"):
@@ -914,6 +964,9 @@ def exec_pairs_t2(kernel: Kernel, tgt_geo, src_fm, group_t, group_s, out_fm,
     if fetch == "static":
         raise ValueError("sibling-paired lists need a dma-family or "
                          "pregather pair_fetch")
+    if src_fm.dtype == torch.float64:
+        raise ValueError("sibling-paired lists have no fp64 executor: the "
+                         "accuracy tier runs the leaf level unpaired")
     if fetch == "pregather":
         _exec_pregather("exec_pre_t2", kernel, tgt_geo, src_fm, group_t,
                         group_s, out_fm, core, twin)
@@ -1033,15 +1086,21 @@ def exec_pairs_capped(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     nothing waits on the host. CPU tensors take the twins on the same
     list. A list that fails its checks adds nothing (its run count is 0;
     the twins see pad steps). Adds into out_fm (zeros when None) and
-    returns it, feature-major."""
+    returns it, feature-major. Double source rows run K1-f64 (tgt_geo
+    promoted; no paired form)."""
     _check_fetch(fetch)
     if fetch not in _BY_ID:
         raise NotImplementedError(
             f"pair_fetch={fetch!r} at static capacity is not ported yet "
             "(ROADMAP.md Queue 1 item 7)")
+    f64 = src_fm.dtype == torch.float64
+    if f64:
+        if paired:
+            raise ValueError("sibling-paired lists have no fp64 executor")
+        tgt_geo = tgt_geo.double()
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
-    kind = "exec_t2" if paired else _BY_ID[fetch]
+    kind = "exec64" if f64 else "exec_t2" if paired else _BY_ID[fetch]
     inst = (kernel.name if kernel.name == "grav3d"
             else f"{kernel.name}_{core}")
     nn_keys = tgt_geo.shape[0] // (2 if paired else 1)

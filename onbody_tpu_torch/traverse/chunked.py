@@ -130,10 +130,10 @@ def solve_dtt_chunked(kernel: Kernel, cfg: SolverConfig,
     PairList with n_valid and overflow and empty tgt/src.
 
     Requires order >= 0 (the lean barycentric path), one equivalent row
-    per node and 2^split < nleaf_t; raises ValueError otherwise. Runs on
-    the device of the particles: CUDA tensors launch the kernels of
-    cfg.pair_fetch (K8/K9 for 'pregather', K1/K2 for 'dma_i', ...) or
-    raise; CPU tensors run their twins.
+    per node, fp32 accumulation and 2^split < nleaf_t; raises ValueError
+    otherwise. Runs on the device of the particles: CUDA tensors launch
+    the kernels of cfg.pair_fetch (K8/K9 for 'pregather', K1/K2 for
+    'dma_i', ...) or raise; CPU tensors run their twins.
 
     make_problem: zero-argument callable returning (srcs, targs);
     make_srcs / make_targs: one per side, called in the order the trees
@@ -156,6 +156,10 @@ def solve_dtt_chunked(kernel: Kernel, cfg: SolverConfig,
         raise ValueError("solve_dtt_chunked does not support split "
                          f"equivalent rows: order {cfg.order} grids exceed "
                          f"the block of {cfg.block_size}")
+    if cfg.accum_dtype != torch.float32:
+        raise ValueError("solve_dtt_chunked runs the fp32 executors: the "
+                         "accuracy tier (accum_dtype float64) takes "
+                         "prepare + solve_dtt")
     split = n_chunks.bit_length() - 1
     if n_chunks < 1 or 1 << split != n_chunks:
         raise ValueError(f"n_chunks {n_chunks} must be a power of two")

@@ -2,10 +2,12 @@
 
 * ``direct_oracle`` — fp64 pairwise broadcast chunked over targets: the
   accuracy oracle every fast method is validated against.
-* ``direct`` — the fp32 production path: kernel K4 on CUDA tensors, its
-  plain twin on CPU tensors (ops/cuda_direct.py). Both evaluate every
-  kernel per pair (the reference routes the 3D vortex kernels through
-  its per-pair form for the same reason, direct.py:114-133).
+* ``direct`` — the production path in accum_dtype: kernel K4 (fp32) or
+  K4-f64 (the accuracy tier's, the inputs promoted to double) on CUDA
+  tensors, their plain twin on CPU tensors (ops/cuda_direct.py). Both
+  evaluate every kernel per pair (the reference routes the 3D vortex
+  kernels through its per-pair form for the same reason,
+  direct.py:114-133).
 """
 
 from __future__ import annotations
@@ -53,15 +55,13 @@ def direct_oracle(kernel: Kernel, srcs: Parts, targs: Parts,
 
 def direct(kernel: Kernel, srcs: Parts, targs: Parts, core: str = "rm",
            accum_dtype=torch.float32) -> torch.Tensor:
-    """Direct sum in fp32: (M, OD). Runs kernel K4 when the particles
-    are on a CUDA device, its plain twin when they are on the CPU.
-    Strengths are (S, SD)."""
-    if accum_dtype != torch.float32:
-        raise NotImplementedError("float64 direct accumulation is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 9)")
-    f32 = torch.float32
-    tr = _target_radii(kernel, targs, f32)
+    """Direct sum in accum_dtype (float32 or float64, mycast semantics:
+    the inputs promoted, every pair term and sum in accum_dtype): (M,
+    OD). Runs kernel K4 (K4-f64) when the particles are on a CUDA
+    device, its plain twin when they are on the CPU. Strengths are (S,
+    SD)."""
+    tr = _target_radii(kernel, targs, accum_dtype)
     return cuda_direct.direct_cuda(
-        kernel, targs.x.to(f32).contiguous(), tr.contiguous(),
-        srcs.x.to(f32).contiguous(), srcs.r.to(f32).contiguous(),
-        srcs.s.to(f32).contiguous(), core)
+        kernel, *(a.to(accum_dtype).contiguous() for a in (
+            targs.x, tr, srcs.x, srcs.r, srcs.s)), core,
+        accum_dtype=accum_dtype)

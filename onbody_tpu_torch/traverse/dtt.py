@@ -35,21 +35,42 @@ def _downward(out, tree_nc, tree_ns, tgt_geo, order: int, levels: int,
     """Prolong accumulated equivalent-target outputs down the tree, in
     place on out (NN, B, OD): for each level top-down, the children's
     points (proxies, or leaf particles at the bottom) receive the
-    parent's equivalent outputs interpolated on the parent grid."""
+    parent's equivalent outputs interpolated on the parent grid. With
+    split equivalent rows (a grid wider than the row B, reference
+    dtt.py:35-114) a node's M grid slots are reassembled from its row and
+    its extension rows, and the children's additions go back across the
+    same split."""
     pd = tree_nc.shape[-1]
     M = (order + 1) ** pd
+    nleaf = 1 << levels
+    B = tgt_geo.shape[-1]
+
+    def split(a, lo, hi):
+        """[(rows of a holding part j of nodes [lo, hi), its slots)]"""
+        return [(a[rows], m) for rows, _, m in
+                eq.grid_parts(slice(lo, hi), nleaf, M, B)]
+
     for l in range(1, levels + 1):
         np_l = 1 << (l - 1)
-        width = block_size if l == levels else M
         for c0 in range(2 * np_l, 4 * np_l, _DOWN_CHUNK):
             c1 = min(c0 + _DOWN_CHUNK, 4 * np_l)
             p0, p1 = c0 // 2, c1 // 2
-            pts = tgt_geo[c0:c1, :pd, :width].transpose(1, 2)
+            pu = torch.cat([u[:, :m] for u, m in split(out, p0, p1)], 1)
             pnc = torch.repeat_interleave(tree_nc[p0:p1], 2, dim=0)
             pns = torch.repeat_interleave(tree_ns[p0:p1], 2, dim=0)
-            pu = torch.repeat_interleave(out[p0:p1, :M], 2, dim=0)
-            out[c0:c1, :width] += eq.prolong_factored(pts, pnc, pns, order,
-                                                      pu)
+            pu = torch.repeat_interleave(pu, 2, dim=0)
+            if l == levels:
+                pts = tgt_geo[c0:c1, :pd, :block_size].transpose(1, 2)
+                out[c0:c1, :block_size] += eq.prolong_factored(
+                    pts, pnc, pns, order, pu)
+                continue
+            pts = torch.cat([g[:, :pd, :m] for g, m in
+                             split(tgt_geo, c0, c1)], 2).transpose(1, 2)
+            add = eq.prolong_factored(pts, pnc, pns, order, pu)
+            lo = 0
+            for u, m in split(out, c0, c1):
+                u[:, :m] += add[:, lo:lo + m]
+                lo += m
     return out
 
 
@@ -102,23 +123,33 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
     keeps the unpaired leaf level, reference dtt.py:213-224). checks:
     the fused route (solve_dtt_fused): the groups keep their static
     capacity and the executors' id checks go to `checks` on the device
-    (exec.exec_pairs)."""
+    (exec.exec_pairs). cfg.accum_dtype float64 runs every pass in double
+    (K1-f64, the paired leaf list off, as the reference's dtt.py:221);
+    orders whose grids exceed the block row split them over extension
+    rows (tree/equivalents.py n_eq_parts)."""
     check_supported(cfg, kernel)
     theta = cfg.theta_dtt if theta is None else theta
     stree, ttree = plan.stree, plan.ttree
+    # split equivalent rows: both trees share block size and order, so
+    # the source and target grids split alike (reference dtt.py:201)
+    parts = eq.n_eq_parts(plan.tgt_geo.shape[-1], cfg.order, kernel.pd)
+    # the accuracy tier has no paired executor (reference dtt.py:221)
     use_p2 = (cfg.dtt_leaf_pair2 and cfg.pair_fetch != "static"
+              and cfg.accum_dtype != torch.float64
               and stree.levels <= ttree.levels and ttree.levels >= 1)
     n_live = plan.tgt_sorted.n_real
     pl2 = None
+    kw = dict(n_live=n_live, compact=cfg.list_compact, src_parts=parts,
+              tgt_parts=parts)
     with phase(timer, "lists"):
         if use_p2:
             pl, pl2 = lists.build_dtt_pairs_level2(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
-                n_live=n_live, compact=cfg.list_compact)
+                **kw)
         else:
             pl = lists.build_dtt_pairs_level(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
-                n_live=n_live, compact=cfg.list_compact)
+                **kw)
     out, info = pexec.exec_pairs(kernel, cfg, plan, pl, cfg.frontier_width,
                                  cfg.cap_groups_dtt, raw2=pl2, timer=timer,
                                  checks=checks)

@@ -21,6 +21,11 @@ per segment), and refuses a paired list, as the reference does.
 The eager path trims each grouped list to its real steps (one read of
 the count); the fused solve's route (`checks`) keeps the static
 capacity, as the reference does inside jit (exec.py:237-246, 266-275).
+
+cfg.accum_dtype float64 (the accuracy tier) runs every fetch through
+K1-f64 on the double source rows the plan holds, tgt_geo promoted, into
+a float64 accumulator (reference exec.py:151-152); it takes no paired
+leaf list.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ def exec_groups(kernel: Kernel, cfg, plan, pg: PairGroups):
     return (out (NN_t, B, OD), pg)."""
     twin = _use_twin(cfg, plan.tgt_geo)
     trimmed = _trim(pg)
-    out = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm, trimmed.tgt,
+    out = pp.exec_pairs(kernel, plan.tgt_geo.to(cfg.accum_dtype),
+                        plan.src_fm, trimmed.tgt,
                         trimmed.src, cfg.core_func, fetch=cfg.pair_fetch,
                         twin=twin)
     return out, pg
@@ -91,15 +97,17 @@ def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
     if raw2 is not None and fetch == "static":
         raise ValueError("sibling-paired leaf lists need a dma-family or "
                          "pregather pair_fetch")
+    # the rows in accum_dtype: src_fm is built so, tgt_geo is promoted
+    tgt_geo = plan.tgt_geo.to(cfg.accum_dtype)
     with phase(timer, "exec interior"):
         pg = _grouped(raw, cfg, slot_width, cap_groups_per_row,
                       trim=not capped)
         if capped:
             out_fm = pp.exec_pairs_capped(
-                kernel, plan.tgt_geo, plan.src_fm, pg.tgt, pg.src, checks,
+                kernel, tgt_geo, plan.src_fm, pg.tgt, pg.src, checks,
                 cfg.core_func, fetch)
         else:
-            out_fm = pp.exec_pairs(kernel, plan.tgt_geo, plan.src_fm,
+            out_fm = pp.exec_pairs(kernel, tgt_geo, plan.src_fm,
                                    pg.tgt, pg.src, cfg.core_func,
                                    fetch=fetch, final=False, twin=twin)
     info = pg
@@ -108,12 +116,12 @@ def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
             pg2 = _grouped(raw2, cfg, slot_width, cap_groups_per_row,
                            trim=not capped)
             if capped:
-                pp.exec_pairs_capped(kernel, plan.tgt_geo, plan.src_fm,
+                pp.exec_pairs_capped(kernel, tgt_geo, plan.src_fm,
                                      pg2.tgt, pg2.src, checks,
                                      cfg.core_func, fetch, out_fm,
                                      paired=True)
             else:
-                pp.exec_pairs_t2(kernel, plan.tgt_geo, plan.src_fm, pg2.tgt,
+                pp.exec_pairs_t2(kernel, tgt_geo, plan.src_fm, pg2.tgt,
                                  pg2.src, out_fm, cfg.core_func, fetch=fetch,
                                  twin=twin)
         info = pg._replace(n_valid=raw.n_valid,

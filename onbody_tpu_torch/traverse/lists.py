@@ -11,9 +11,14 @@ source node id is its row in the unified Blocks array and 0 is the inert
 pad row. Overflow of a fixed width is counted, never silent.
 
 The DTT MAC reads the source geometry quantized onto a shared 16-bit
-grid (the reference's mac_geometry='quant', which decides the lists);
-`mac_geometry='f32'` is not ported. The treecode MACs read float32
-geometry, as the reference's do.
+grid (the reference's mac_geometry='quant') or exact (mac_geometry='f32'),
+as the reference does; the two can differ on razor-edge decisions. The
+treecode MACs read the trees' geometry as it is, as the reference's do.
+
+With split equivalent rows (tree/equivalents.py n_eq_parts > 1) an
+accepted interior source also names its extension rows (_ext_src,
+src_parts), and the DTT gives each interior target's extension rows the
+same accepted list (tgt_parts), in the reference's order.
 """
 
 from __future__ import annotations
@@ -179,13 +184,15 @@ def _treecode_lists(stree: Tree, ttree: Tree, theta: float, mac: str,
 
 
 def _ext_src(out, nleaf_s: int, parts: int):
-    """Extension-row ids of accepted interior sources whose proxy grid
-    spans `parts` block rows (reference _ext_src)."""
+    """Each row's accepted ids (L, W) followed by the extension-row ids
+    of its accepted interior sources, whose proxy grid spans `parts`
+    block rows: part j >= 1 of node i is row (j+1)*nleaf_s + i; leaves
+    and pads give 0 there. Returns (L, parts*W) (reference _ext_src)."""
     if parts == 1:
         return out
-    raise NotImplementedError("split equivalent rows (a proxy grid wider "
-                              "than the block) are not ported yet "
-                              "(ROADMAP.md Queue 1 item 11)")
+    interior = (out > 0) & (out < nleaf_s)
+    return torch.cat([out] + [torch.where(interior, out + (j + 1) * nleaf_s,
+                                          0) for j in range(1, parts)], 1)
 
 
 def build_treecode_pairs(stree: Tree, ttree: Tree, theta: float, mac: str,
@@ -195,12 +202,18 @@ def build_treecode_pairs(stree: Tree, ttree: Tree, theta: float, mac: str,
     width list_width."""
     out, cnt, ov = _treecode_lists(stree, ttree, theta, mac, frontier_width,
                                    list_width)
-    out = _ext_src(out, stree.nleaf, src_parts)
+    n_valid = cnt.sum()
+    if src_parts > 1:
+        # accepted interior nodes span extension rows, in the same width
+        out, ov2 = _compact_rows(_ext_src(out, stree.nleaf, src_parts),
+                                 out.shape[1])
+        ov = ov + ov2
+        n_valid = (out != 0).sum()
     nleaf_t = ttree.nleaf
     tgt = torch.arange(nleaf_t, 2 * nleaf_t, dtype=torch.int64,
                        device=out.device)[:, None].expand_as(out)
     return PairList(tgt=tgt.reshape(-1), src=out.reshape(-1),
-                    n_valid=cnt.sum(), overflow=ov)
+                    n_valid=n_valid, overflow=ov)
 
 
 # --------------------------------------------------- dual-tree traversal
@@ -223,23 +236,31 @@ def _quant_grid(stree: Tree, ttree: Tree):
 
 def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
                    mac_geometry: str = "quant"):
-    """MAC classifier over dense candidate rows. Returns (classify,
-    prep): prep(tcm, tnr) puts a level's target geometry in grid units,
-    classify(cand, tgeo, t_is_leaf) -> (accept, expand, defer)."""
-    if mac_geometry != "quant":
-        raise NotImplementedError("mac_geometry='f32' is not ported "
-                                  "(ROADMAP.md Queue 1 item 5)")
+    """MAC classifier over dense candidate rows (reference
+    _mk_classifier). Returns (classify, prep): prep(tcm, tnr) puts a
+    level's target geometry in the sources' units, classify(cand, tgeo,
+    t_is_leaf) -> (accept, expand, defer). mac_geometry 'quant' reads
+    the source CMs and radii on a shared 16-bit grid (the targets in
+    grid units, unrounded), 'f32' reads them exact."""
     pd = stree.nc.shape[1]
     th = torch.full((), theta, dtype=torch.float32, device=stree.x.device)
-    lo, scale = _quant_grid(stree, ttree)
-    inv = 1.0 / scale
-    # grid-unit CM per dimension, then the node radius (2D: x, y, nr;
-    # reference lists.py:591-600)
-    sq = [_quant_u16((stree.x[:, d] - lo[d]) * inv) for d in range(pd)]
-    sq.append(_quant_u16(stree.nr * inv))
+    if mac_geometry == "quant":
+        lo, scale = _quant_grid(stree, ttree)
+        inv = 1.0 / scale
+        # grid-unit CM per dimension, then the node radius (2D: x, y, nr;
+        # reference lists.py:591-600)
+        sgeo = [_quant_u16((stree.x[:, d] - lo[d]) * inv) for d in range(pd)]
+        sgeo.append(_quant_u16(stree.nr * inv))
 
-    def prep(tcm, tnr):
-        return (tcm - lo[None, :]) * inv, tnr * inv
+        def prep(tcm, tnr):
+            return (tcm - lo[None, :]) * inv, tnr * inv
+    elif mac_geometry == "f32":
+        sgeo = [stree.x[:, d] for d in range(pd)] + [stree.nr]
+
+        def prep(tcm, tnr):
+            return tcm, tnr
+    else:
+        raise ValueError(f"mac_geometry {mac_geometry!r}: 'quant' or 'f32'")
 
     def classify(cand, tgeo, t_is_leaf: bool):
         tcm_u, tnr_u = tgeo
@@ -247,9 +268,9 @@ def _mk_classifier(stree: Tree, ttree: Tree, theta: float, nleaf_s: int,
         s_is_leaf = cand >= nleaf_s
         d2 = None
         for d in range(pd):
-            dd = sq[d][cand] - tcm_u[:, None, d]
+            dd = sgeo[d][cand] - tcm_u[:, None, d]
             d2 = dd * dd if d2 is None else d2 + dd * dd
-        lim = th * (sq[pd][cand] + tnr_u[:, None])
+        lim = th * (sgeo[pd][cand] + tnr_u[:, None])
         sep = d2 > lim * lim
         accept = valid & ((s_is_leaf & t_is_leaf) | sep)
         if t_is_leaf:
@@ -281,10 +302,15 @@ def _defer_kids(cand, defer, nleaf_s: int, width: int,
 def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                      frontier_width: int, mac_geometry: str = "quant",
                      n_live: int = 0, leaf_pair2: bool = False,
-                     compact: str = "scatter"):
+                     compact: str = "scatter", src_parts: int = 1,
+                     tgt_parts: int = 1):
     """Simultaneous-descent dual-tree traversal, one MAC round per
     target level (reference _dtt_lists_level). `compact` is the row
-    order of every compaction (_compact_rows' mode).
+    order of every compaction (_compact_rows' mode). With split
+    equivalent rows, an accepted interior source names its src_parts
+    rows (_ext_src, inside the row's width) and each interior target's
+    tgt_parts - 1 extension rows get its row's list, right after the
+    level's rows.
 
     A target node's candidates are the children of its parent's
     non-separated list (a non-separated source leaf rides along
@@ -298,10 +324,10 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
     (parent q, source) instead; n_valid counts it once per alive child.
     Returns (tgt, src, [p2_tgt, p2_src,] n_valid, overflow)."""
     levels_s, levels_t = stree.levels, ttree.levels
-    nleaf_s = 1 << levels_s
+    nleaf_s, nleaf_t = 1 << levels_s, 1 << levels_t
     W = frontier_width
     dev = ttree.x.device
-    n_pad_t = (1 << levels_t) * ttree.block_size
+    n_pad_t = nleaf_t * ttree.block_size
     classify, prep = _mk_classifier(stree, ttree, theta, nleaf_s,
                                     mac_geometry)
 
@@ -337,7 +363,8 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                 # deep source tree: refine remaining interior sources
                 out_ext = cand.new_zeros((rows, W + 1))
                 out_cnt = cand.new_zeros((rows,))
-                out_ext, out_cnt, ov0 = _append_rows(out_ext, out_cnt, out)
+                out_ext, out_cnt, ov0 = _append_rows(
+                    out_ext, out_cnt, _ext_src(out, nleaf_s, src_parts))
                 overflow = overflow + ov0
                 for _ in range(levels_s - levels_t):
                     kids = torch.cat([torch.where(expand, 2 * cand, 0),
@@ -347,13 +374,16 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
                     overflow = overflow + ovc
                     accept, expand, defer = classify(cand, tgeo, True)
                     out_ext, out_cnt, ovc = _append_rows(
-                        out_ext, out_cnt, torch.where(accept, cand, 0))
+                        out_ext, out_cnt,
+                        _ext_src(torch.where(accept, cand, 0), nleaf_s,
+                                 src_parts))
                     overflow = overflow + ovc
                 overflow = overflow + expand.sum()
                 out = out_ext[:, :W]
                 total_valid = total_valid + out_cnt.sum()
             else:
-                out, ovc = _compact_rows(out, W, compact)
+                out, ovc = _compact_rows(_ext_src(out, nleaf_s, src_parts),
+                                         W, compact)
                 overflow = overflow + ovc + expand.sum()
                 total_valid = total_valid + (out != 0).sum()
         all_tgt.append(tgt_ids[:, None].expand(rows, out.shape[1])
@@ -361,6 +391,12 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
         all_src.append(out.reshape(-1))
         if t_is_leaf:
             break
+        for j in range(1, tgt_parts):
+            # the interior targets' extension rows: the same list
+            all_tgt.append((tgt_ids + (j + 1) * nleaf_t)[:, None]
+                           .expand(rows, out.shape[1]).reshape(-1))
+            all_src.append(out.reshape(-1))
+            total_valid = total_valid + (out != 0).sum()
         nxt, ovc = _defer_kids(cand, defer, nleaf_s, W, compact)
         overflow = overflow + ovc
         if leaf_pair2 and l == levels_t - 1:
@@ -505,29 +541,36 @@ def build_dtt_pairs_level(stree: Tree, ttree: Tree, theta: float,
                           frontier_width: int = 128,
                           mac_geometry: str = "quant",
                           n_live: int = 0,
-                          compact: str = "scatter") -> PairList:
+                          compact: str = "scatter", src_parts: int = 1,
+                          tgt_parts: int = 1) -> PairList:
     """Simultaneous-descent DTT pair list; slot width frontier_width;
-    `compact` orders each row (_compact_rows)."""
+    `compact` orders each row (_compact_rows); src_parts / tgt_parts the
+    rows a source's / target's proxy grid spans."""
     tgt, src, nv, ov = _dtt_lists_level(stree, ttree, theta,
                                         frontier_width, mac_geometry,
-                                        n_live, compact=compact)
+                                        n_live, compact=compact,
+                                        src_parts=src_parts,
+                                        tgt_parts=tgt_parts)
     return PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
 
 
 def build_dtt_pairs_level2(stree: Tree, ttree: Tree, theta: float,
                            frontier_width: int = 128,
                            mac_geometry: str = "quant",
-                           n_live: int = 0, compact: str = "scatter"
+                           n_live: int = 0, compact: str = "scatter",
+                           src_parts: int = 1, tgt_parts: int = 1
                            ) -> Tuple[PairList, PairList]:
     """DTT lists with sibling-paired leaf emission. Returns (interior,
-    leaf2): interior holds target levels 0..levels_t-1, leaf2 one entry
-    per (target PARENT q, source leaf) standing for rows 2q and 2q+1.
-    interior.n_valid is the combined pair count."""
+    leaf2): interior holds target levels 0..levels_t-1 (with the
+    extension rows of split grids), leaf2 one entry per (target PARENT
+    q, source leaf) standing for rows 2q and 2q+1. interior.n_valid is
+    the combined pair count."""
     if stree.levels > ttree.levels or ttree.levels < 1:
         raise ValueError("leaf_pair2 needs levels_s <= levels_t >= 1")
     tgt, src, p2t, p2s, nv, ov = _dtt_lists_level(
         stree, ttree, theta, frontier_width, mac_geometry, n_live,
-        leaf_pair2=True, compact=compact)
+        leaf_pair2=True, compact=compact, src_parts=src_parts,
+        tgt_parts=tgt_parts)
     interior = PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
     leaf2 = PairList(tgt=p2t, src=p2s, n_valid=(p2s != 0).sum(),
                      overflow=torch.zeros_like(ov))

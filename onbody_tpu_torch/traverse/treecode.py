@@ -40,7 +40,7 @@ class Plan:
     tgt_blocks: Optional[eq.Blocks]
     src_gidx: torch.Tensor
     tgt_gidx: torch.Tensor
-    src_fm: torch.Tensor             # (NN, C, B) feature-major sources
+    src_fm: torch.Tensor             # (NN, C, B) sources, accum_dtype
     tgt_geo: torch.Tensor            # (NN, 8, B) [pos | radius | 0]
     tgt_inv: Optional[torch.Tensor]  # original target index -> slot
 
@@ -49,7 +49,13 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
             want_inv: bool = True, timer=None) -> Plan:
     """Build both trees and the unified block arrays (the reference
     times this as 'build tree' + 'calc equivalents'). want_inv=False
-    skips the inverse target permutation (results stay in tree order)."""
+    skips the inverse target permutation (results stay in tree order).
+
+    Particles, trees, proxies and tgt_geo are in cfg.storage_dtype; the
+    source rows src_fm are featurized in cfg.accum_dtype from them (the
+    promotion is exact but for grav3d's stored sr^2, which the
+    reference's fp64 tier squares after promoting). With split
+    equivalent rows both arrays have (1 + parts) * nleaf rows."""
     check_supported(cfg, kernel)
     srcs = P.astype(srcs, cfg.storage_dtype)
     targs = P.astype(targs, cfg.storage_dtype)
@@ -72,15 +78,16 @@ def prepare(kernel: Kernel, cfg: SolverConfig, srcs: Parts, targs: Parts,
             # the Blocks path, as in the reference (treecode.py:113)
             pad8 = cfg.pair_fetch.startswith("dma")
             src_fm = eq.barycentric_fm(stree, ss, cfg.order, kernel.name,
-                                       pad8=pad8)
+                                       pad8=pad8, dtype=cfg.accum_dtype)
             tgt_geo = eq.target_geo_fm(ttree, ts, cfg.order)
             sblocks = tblocks = None
         else:
             sblocks = (eq.barycentric_blocks(stree, ss, cfg.order)
                        if cfg.order >= 0 else eq.pairmerge_blocks(stree, ss))
             tblocks = eq.target_blocks(ttree, ts, cfg.order)
-            src_fm = pp.build_fm_blocks(kernel, sblocks.pos, sblocks.rad,
-                                        sblocks.s)
+            src_fm = pp.build_fm_blocks(
+                kernel, *(a.to(cfg.accum_dtype)
+                          for a in (sblocks.pos, sblocks.rad, sblocks.s)))
             tgt_geo = pp.build_tgt_geo(tblocks.pos, tblocks.rad)
     tgt_inv = None
     if want_inv:
@@ -150,19 +157,22 @@ _MONO_ELEMS = 1 << 24
 
 
 def _monopole_eval(kernel: Kernel, tgt_pos, tgt_rad, mono_pos, mono_rad,
-                   mono_str, core: str):
+                   mono_str, core: str, accum_dtype=torch.float32):
     """Each leaf's targets (L, bs, PD) against its gathered monopoles
-    (L, K, PD): (L, bs, OD). Sliced over leaves so the (leaves, bs, K)
-    temporaries stay bounded (leaf-independent math)."""
+    (L, K, PD): (L, bs, OD), evaluated in accum_dtype (the inputs
+    promoted, as the reference's jnp form does). Sliced over leaves so
+    the (leaves, bs, K) temporaries stay bounded (leaf-independent
+    math)."""
     L, bs = tgt_rad.shape
     k = mono_rad.shape[1]
-    out = tgt_pos.new_empty((L, bs, kernel.od))
+    out = tgt_pos.new_empty((L, bs, kernel.od), dtype=accum_dtype)
     step = max(1, _MONO_ELEMS // (bs * max(k, 1)))
     for l0 in range(0, L, step):
         sl = slice(l0, l0 + step)
-        srcT = featurize(kernel.name, mono_pos[sl], mono_rad[sl],
-                         mono_str[sl], pad8=False)
-        out[sl] = kernel.tile_fm(tgt_pos[sl], tgt_rad[sl], srcT, core)
+        t, tr, mp, mr, ms = (a[sl].to(accum_dtype) for a in (
+            tgt_pos, tgt_rad, mono_pos, mono_rad, mono_str))
+        srcT = featurize(kernel.name, mp, mr, ms, pad8=False)
+        out[sl] = kernel.tile_fm(t, tr, srcT, core)
     return out
 
 
@@ -190,7 +200,8 @@ def solve_treecode1(kernel: Kernel, cfg: SolverConfig, plan: Plan,
         far = _monopole_eval(
             kernel, plan.tgt_sorted.x.view(nleaf_t, bs, -1),
             plan.tgt_sorted.r.view(nleaf_t, bs), stree.x[mono_ids],
-            stree.pr[mono_ids], stree.s[mono_ids], cfg.core_func)
+            stree.pr[mono_ids], stree.s[mono_ids], cfg.core_func,
+            cfg.accum_dtype)
     # near: leaf-leaf direct through the pair executor
     leaf_rows = torch.where(rows >= nleaf_s, rows, 0)
     tgt = torch.arange(nleaf_t, 2 * nleaf_t, dtype=torch.int64,

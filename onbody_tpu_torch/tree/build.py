@@ -104,7 +104,13 @@ def _fma_sumsq(v: torch.Tensor) -> torch.Tensor:
     fma(v_k, v_k, ... fma(v_1, v_1, v_0 * v_0)) that the reference's
     compiled reduction computes: each product is exact in float64 and
     each step is rounded to float32 (through float64, so a rare last
-    bit can still differ from a true fma)."""
+    bit can still differ from a true fma). float64 rows sum in the same
+    order in float64."""
+    if v.dtype == torch.float64:
+        acc = v[:, 0] * v[:, 0]
+        for d in range(1, v.shape[1]):
+            acc = v[:, d] * v[:, d] + acc
+        return acc
     acc = (v[:, 0] * v[:, 0]).double()
     for d in range(1, v.shape[1]):
         w = v[:, d].double()
@@ -131,8 +137,13 @@ def _split(x: torch.Tensor, gidx: torch.Tensor, n_real: int, l: int):
     axis = torch.argmax(hi - lo, dim=1)
     ids = torch.arange(end, device=x.device)
     seg = ids // m
-    key = (seg << 32) | _ordered_u32(x[ids, axis[seg]])
-    order = torch.sort(key, stable=True).indices
+    v = x[ids, axis[seg]]
+    if x.dtype == torch.float32:
+        order = torch.sort((seg << 32) | _ordered_u32(v), stable=True).indices
+    else:
+        # float64 storage: by value, then (stably) by segment
+        by_v = torch.sort(v, stable=True).indices
+        order = by_v[torch.sort(seg[by_v], stable=True).indices]
     x[:end] = x[:end][order]
     gidx[:end] = gidx[:end][order]
 

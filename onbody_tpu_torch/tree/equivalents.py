@@ -13,9 +13,13 @@ Output is the unified `Blocks` array: row i holds node i's proxies if
 interior, its particles if a leaf; row 0 is the inert pad row (position
 0, RADIUS 1, zero strength), so padded pair lists contribute nothing and
 no pair meets rsqrt(0). `barycentric_fm` / `target_geo_fm` build the
-executors' feature-major layouts directly (the lean plan). Split
-equivalent rows (M wider than a row, n_eq_parts > 1) are not ported
-(ROADMAP item 11).
+executors' feature-major layouts directly (the lean plan).
+
+A grid wider than a row (M > width: order 5 at block 128, order 6 and 7
+at block 256 in 3D) spans n_eq_parts rows: part j >= 1 of node i lives at
+the extension row ext_offset(j, nleaf) + i = (j+1)*nleaf + i, appended
+after the 2*nleaf unified rows (the reference's layout), and the pair
+lists name the parts as separate rows (traverse/lists.py _ext_src).
 """
 
 from __future__ import annotations
@@ -114,8 +118,10 @@ def anterp_factored(pts, nc, ns, order: int, s):
 
 def prolong_factored(pts, nc, ns, order: int, U):
     """Downward prolongation: (n, M, OD) grid values -> (n, P, OD) at
-    pts (n, P, PD), PD 3 or 2."""
-    f = bary_factors(pts, nc, ns, order)
+    pts (n, P, PD), PD 3 or 2. The factors are computed in the points'
+    type and promoted to U's (the reference's fp64 tier, which keeps
+    fp32 geometry, does the same)."""
+    f = bary_factors(pts, nc, ns, order).to(U.dtype)
     ncp = order + 1
     n, _, od = U.shape
     if pts.shape[-1] == 3:
@@ -151,12 +157,20 @@ def n_eq_parts(width: int, order: int, pd: int) -> int:
     return -(-((order + 1) ** pd) // width)
 
 
-def _check_one_part(width: int, order: int, pd: int) -> None:
-    if n_eq_parts(width, order, pd) > 1:
-        raise NotImplementedError(
-            f"order {order} grids ({(order + 1) ** pd} proxies) exceed the "
-            f"block width {width}: split equivalent rows are not ported "
-            "yet (ROADMAP.md Queue 1 item 11)")
+def ext_offset(part: int, nleaf: int) -> int:
+    """Row offset of extension part j >= 1: row = (j+1)*nleaf + node."""
+    return (part + 1) * nleaf
+
+
+def grid_parts(sl: slice, nleaf: int, M: int, width: int):
+    """The rows of a level's grids, part by part: yields (rows, lo, m),
+    part j holding grid slots [lo, lo + m) of the level's nodes `sl` in
+    the rows `sl` (j 0) or `sl` moved to the extension rows (j >= 1)."""
+    for j in range(-(-M // width)):
+        lo = j * width
+        shift = ext_offset(j, nleaf) if j else 0
+        yield (slice(sl.start + shift, sl.stop + shift), lo,
+               min(M, lo + width) - lo)
 
 
 # nodes per anterpolation batch: the factored contraction's largest
@@ -203,25 +217,26 @@ def barycentric_blocks(tree: Tree, sorted_parts: Parts,
     """Unified source Blocks with barycentric-Lagrange interior proxies
     (reference _bary_impl): leaf rows the particles, interior rows the
     grid (unused slots parked at the node center, zero strength, radius
-    of the node's first particle)."""
+    of the node's first particle), a grid wider than the row split over
+    extension rows."""
     x, r, s = sorted_parts.x, sorted_parts.r, sorted_parts.s
     pd, sd = x.shape[1], s.shape[1]
     width = block_width(tree.block_size)
-    _check_one_part(width, order, pd)
     M = (order + 1) ** pd
     nleaf, bs = tree.nleaf, tree.block_size
-    nn = 2 * nleaf
+    nn = (1 + n_eq_parts(width, order, pd)) * nleaf
     pos = x.new_zeros((nn, width, pd))
     rad = x.new_ones((nn, width))
     st = x.new_zeros((nn, width, sd))
-    pos[nleaf:, :bs] = x.view(nleaf, bs, pd)
-    rad[nleaf:, :bs] = r.view(nleaf, bs)
-    st[nleaf:, :bs] = s.view(nleaf, bs, sd)
+    pos[nleaf:2 * nleaf, :bs] = x.view(nleaf, bs, pd)
+    rad[nleaf:2 * nleaf, :bs] = r.view(nleaf, bs)
+    st[nleaf:2 * nleaf, :bs] = s.view(nleaf, bs, sd)
     for sl, nc_l, grid, eq_s, r_first in _proxy_levels(tree, x, r, s, order):
-        pos[sl, :M] = grid
-        pos[sl, M:] = nc_l[:, None, :]
-        st[sl, :M] = eq_s
-        rad[sl] = r_first
+        for rows, lo, m in grid_parts(sl, nleaf, M, width):
+            pos[rows, :m] = grid[:, lo:lo + m]
+            pos[rows, m:] = nc_l[:, None, :]
+            st[rows, :m] = eq_s[:, lo:lo + m]
+            rad[rows] = r_first
     return Blocks(pos=pos, rad=rad, s=st)
 
 
@@ -318,17 +333,18 @@ def target_blocks(tree: Tree, sorted_targs: Parts, order: int) -> Blocks:
                                       tree.levels, tree.block_size)
         pos, rad, _ = _pad_block_width(pos, rad, None, width)
         return Blocks(pos=pos, rad=rad, s=None)
-    _check_one_part(width, order, pd)
     M = (order + 1) ** pd
     nleaf, bs = tree.nleaf, tree.block_size
-    pos = x.new_zeros((2 * nleaf, width, pd))
-    rad = x.new_ones((2 * nleaf, width))
-    pos[nleaf:, :bs] = x.view(nleaf, bs, pd)
-    rad[nleaf:, :bs] = r.view(nleaf, bs)
+    nn = (1 + n_eq_parts(width, order, pd)) * nleaf
+    pos = x.new_zeros((nn, width, pd))
+    rad = x.new_ones((nn, width))
+    pos[nleaf:2 * nleaf, :bs] = x.view(nleaf, bs, pd)
+    rad[nleaf:2 * nleaf, :bs] = r.view(nleaf, bs)
     for sl, nc_l, grid, _, r_first in _proxy_levels(tree, x, r, None, order):
-        pos[sl, :M] = grid
-        pos[sl, M:] = nc_l[:, None, :]
-        rad[sl] = r_first
+        for rows, lo, m in grid_parts(sl, nleaf, M, width):
+            pos[rows, :m] = grid[:, lo:lo + m]
+            pos[rows, m:] = nc_l[:, None, :]
+            rad[rows] = r_first
     return Blocks(pos=pos, rad=rad, s=None)
 
 
@@ -337,7 +353,8 @@ def target_blocks(tree: Tree, sorted_targs: Parts, order: int) -> Blocks:
 # (NN, 8, B) target geometry. These functions write those layouts directly,
 # level by level, without the point-major Blocks (SolverConfig.lean_plan).
 # Rows are block_size wide here (the Blocks path rounds the width up to a
-# multiple of 128), so a grid wider than the block raises as split rows.
+# multiple of 128), so a grid wider than the block splits over extension
+# rows sooner (order 3 in 3D at block 32).
 
 def _parked(grid, nc_l, width: int):
     """(nseg, width, PD): the grid, then unused slots at the node center."""
@@ -347,56 +364,72 @@ def _parked(grid, nc_l, width: int):
 
 def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
                    kernel_name: str, pad8: bool = True, flat: bool = False,
-                   leaf_chunk: int = 4096) -> torch.Tensor:
+                   leaf_chunk: int = 4096, dtype=None) -> torch.Tensor:
     """Feature-major source blocks (NN, C, B) with barycentric proxies,
     equal row for row to featurize(barycentric_blocks(...), pad8) where
-    the block size is a multiple of 128 (reference barycentric_fm).
-    pad8=False stores the lean rows (grav3d 5, vort2d 4). Row 0 is the
-    inert row FEATURIZED (position 0, radius 1, zero strength), never
-    all-zero. flat=True returns the (NN, C*B) view of the same memory.
-    Leaves are featurized leaf_chunk at a time, which bounds the
-    temporary beside the output."""
+    the block size is a multiple of 128 (reference barycentric_fm); a
+    grid wider than the block splits over extension rows (NN = (1 +
+    parts) * nleaf). pad8=False stores the lean rows (grav3d 5, vort2d
+    4). Row 0 is the inert row FEATURIZED (position 0, radius 1, zero
+    strength), never all-zero. flat=True returns the (NN, C*B) view of
+    the same memory. Leaves are featurize(d) leaf_chunk at a time, which
+    bounds the temporary beside the output. dtype (None: the particles')
+    is the type the rows are featurized in: the proxies are computed in
+    the particles' type, then promoted (grav3d's sr^2 squared after the
+    promotion, as the reference's fp64 tier squares it)."""
     x, r, s = sorted_parts.x, sorted_parts.r, sorted_parts.s
     pd, sd = x.shape[1], s.shape[1]
     width = tree.block_size
-    _check_one_part(width, order, pd)
+    M = (order + 1) ** pd
     nleaf = tree.nleaf
-    safe0 = featurize(kernel_name, x.new_zeros((1, width, pd)),
-                      x.new_ones((1, width)), x.new_zeros((1, width, sd)),
-                      pad8)
-    fm = x.new_zeros((2 * nleaf,) + safe0.shape[1:])
+    dtype = x.dtype if dtype is None else dtype
+
+    def feat(pos, rad, st):
+        return featurize(kernel_name, pos.to(dtype), rad.to(dtype),
+                         st.to(dtype), pad8)
+
+    safe0 = feat(x.new_zeros((1, width, pd)), x.new_ones((1, width)),
+                 x.new_zeros((1, width, sd)))
+    nn = (1 + n_eq_parts(width, order, pd)) * nleaf
+    fm = safe0.new_zeros((nn,) + safe0.shape[1:])
     fm[0] = safe0[0]
     xb, rb, sb = (x.view(nleaf, width, pd), r.view(nleaf, width),
                   s.view(nleaf, width, sd))
     for lo in range(0, nleaf, leaf_chunk):
         hi = min(lo + leaf_chunk, nleaf)
-        fm[nleaf + lo:nleaf + hi] = featurize(kernel_name, xb[lo:hi],
-                                              rb[lo:hi], sb[lo:hi], pad8)
+        fm[nleaf + lo:nleaf + hi] = feat(xb[lo:hi], rb[lo:hi], sb[lo:hi])
     for sl, nc_l, grid, eq_s, r_first in _proxy_levels(tree, x, r, s, order):
-        nseg, m = eq_s.shape[:2]
-        st_w = torch.cat([eq_s, eq_s.new_zeros((nseg, width - m, sd))], 1)
-        fm[sl] = featurize(kernel_name, _parked(grid, nc_l, width),
-                           r_first.expand(nseg, width), st_w, pad8)
-    return fm.view(2 * nleaf, -1) if flat else fm
+        nseg = eq_s.shape[0]
+        for rows, lo, m in grid_parts(sl, nleaf, M, width):
+            st_w = torch.cat([eq_s[:, lo:lo + m],
+                              eq_s.new_zeros((nseg, width - m, sd))], 1)
+            fm[rows] = feat(_parked(grid[:, lo:lo + m], nc_l, width),
+                            r_first.expand(nseg, width), st_w)
+    return fm.view(nn, -1) if flat else fm
 
 
 def target_geo_fm(tree: Tree, sorted_targs: Parts,
                   order: int) -> torch.Tensor:
     """(NN, 8, B) target geometry [pos | radius | 0..] built directly
     (reference target_geo_fm): rows 1.. equal
-    build_tgt_geo(target_blocks(...)); row 0 is all zero here (the Blocks
-    path gives it radius 1; no executor reads it as a target)."""
+    build_tgt_geo(target_blocks(...)) where the block size is a multiple
+    of 128, a grid wider than the block split over extension rows; row 0
+    is all zero here (the Blocks path gives it radius 1; no executor
+    reads it as a target)."""
     x, r = sorted_targs.x, sorted_targs.r
     pd = x.shape[1]
     width = tree.block_size
-    _check_one_part(width, order, pd)
+    M = (order + 1) ** pd
     nleaf = tree.nleaf
-    geo = x.new_zeros((2 * nleaf, 8, width))
-    geo[nleaf:, :pd] = x.view(nleaf, width, pd).transpose(1, 2)
-    geo[nleaf:, pd] = r.view(nleaf, width)
+    geo = x.new_zeros(((1 + n_eq_parts(width, order, pd)) * nleaf, 8,
+                       width))
+    geo[nleaf:2 * nleaf, :pd] = x.view(nleaf, width, pd).transpose(1, 2)
+    geo[nleaf:2 * nleaf, pd] = r.view(nleaf, width)
     for sl, nc_l, grid, _, r_first in _proxy_levels(tree, x, r, None, order):
-        geo[sl, :pd] = _parked(grid, nc_l, width).transpose(1, 2)
-        geo[sl, pd] = r_first
+        for rows, lo, m in grid_parts(sl, nleaf, M, width):
+            geo[rows, :pd] = _parked(grid[:, lo:lo + m], nc_l,
+                                     width).transpose(1, 2)
+            geo[rows, pd] = r_first
     return geo
 
 
@@ -450,8 +483,12 @@ def _target_geo_slab_impl(tree: Tree, x, r, root: int, order: int,
 def target_geo_slab(tree: Tree, sorted_targs: Parts, root: int, order: int,
                     split: int) -> torch.Tensor:
     """(R, 8, B) owner-major target-geometry slab for subtree `root`
-    (reference target_geo_slab)."""
-    _check_one_part(tree.block_size, order, sorted_targs.pd)
+    (reference target_geo_slab); one row per node, so the grid must fit
+    the block (the chunked solve refuses split rows, as the reference
+    does)."""
+    if n_eq_parts(tree.block_size, order, sorted_targs.pd) > 1:
+        raise ValueError(f"target_geo_slab: order {order} grids exceed "
+                         f"the block of {tree.block_size}")
     return _target_geo_slab_impl(tree, sorted_targs.x, sorted_targs.r,
                                  int(root), order, tree.levels, split,
                                  tree.block_size)

@@ -9,6 +9,8 @@ jax is imported only where a reference object is built, so the GPU-only
 tests (test_torch_cuda.py) use this module on machines without jax.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -113,3 +115,17 @@ class PairedSpy:
                            torch.equal(out_fm[:2], sentinel)))
         out_fm[:2] = kept
         return res
+
+
+@contextlib.contextmanager
+def jax_x64():
+    """The reference's fp64 tier needs jax_enable_x64 (without it
+    float64 arrays silently stay float32): set it for the block and put
+    the previous value back after it."""
+    import jax
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)

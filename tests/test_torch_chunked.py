@@ -356,6 +356,8 @@ REFUSALS = {
                    "split equivalent rows"),
     "chunks>=leaves": ({}, 64, 4096, "more target leaves than chunks"),
     "chunks-not-pow2": ({}, 3, 4096, "power of two"),
+    "accum-fp64": (dict(accum_dtype=torch.float64), 2, 4096,
+                   "fp32 executors"),
 }
 
 

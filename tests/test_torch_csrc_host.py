@@ -46,9 +46,7 @@ from onbody_tpu_torch.ops.kernels import featurize, get_kernel
 torch.set_num_threads(1)
 
 # instantiations as (workload, core)
-INSTANCES = [("grav3d", "rm")] + [(k, c) for k in ("vort2d", "vort3d",
-                                                   "vortgrad3d")
-                                  for c in cuda_lib.CUDA_CORES]
+INSTANCES = list(cuda_lib.INSTANCE_CORES)
 IDS = [f"{k}-{c}" for k, c in INSTANCES]
 REL_RMS, MAX_REL = 1e-5, 1e-4           # chip_smoke.py's kernel limits
 
@@ -71,10 +69,11 @@ static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
 struct float4 {
   float x, y, z, w;
 };
-static float host_dyn_smem[1 << 16];
+alignas(16) static float host_dyn_smem[1 << 16];
 inline void __syncthreads() {}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline double rsqrt(double x) { return 1.0 / sqrt(x); }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
@@ -931,3 +930,79 @@ def test_host_library_exports_k13_entries(host_lib):
     for mode in cuda_lib.ABLATE_MODES:
         for kind in ("exec", "occupancy"):
             _ablate_entry(host_lib, kind, mode)
+
+
+# K1-f64 and K4-f64 (csrc/fp64.cuh) against their float64 twins: max
+# error / max |twin|, the limit chip_smoke.py holds them to on the card
+F64_MAX_REL = 1e-12
+
+
+def _f64_errors(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k1_f64_matches_twin(host_lib, name, core):
+    """K1-f64 at B 32 and at the ragged B 577 (three CTAs of 256 targets
+    per row), on double rows: the float64 twin's sums within
+    F64_MAX_REL, rows without a run untouched; launched as the fused
+    solve launches it (the list at its capacity, the count read by the
+    kernel), the trimmed launch's output bit for bit."""
+    kernel = get_kernel(name)
+    for b, seed, gt_list, group in (
+            (32, 0, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0], 8),
+            (RAGGED_B, 30, [3, 0, 5, 5, 9, 0], 4)):
+        src_fm, tgt_geo = (a.double() for a in _blocks(kernel, b=b,
+                                                       seed=seed))
+        gt, gs = _ragged_groups(gt_list, seed + 1, group)
+        out = torch.zeros((16, cuda_pairs.od8(kernel), b),
+                          dtype=torch.float64)
+        capped = out.clone()
+        assert _run_exec(host_lib, "exec64", kernel, core, tgt_geo, src_fm,
+                         gt, gs, out) == 0
+        twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                           final=False, core=core)
+        assert torch.isfinite(out).all()
+        assert _f64_errors(out, twin) <= F64_MAX_REL, b
+        assert not out[torch.tensor([r for r in range(16)
+                                     if r not in gt_list])].any()
+        cgt, cgs = _front_packed(gt, gs, int((gt != 0).sum()))
+        assert _run_capped(host_lib, "exec64", kernel, core, tgt_geo,
+                           src_fm, cgt, cgs, capped) == 0
+        assert torch.equal(capped, out)
+
+
+@pytest.mark.parametrize("m,s,splits", K4_CASES,
+                         ids=[f"{m}x{s}-{k}" for m, s, k in K4_CASES])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_host_k4_f64_matches_twin(host_lib, name, core, m, s, splits):
+    """K4-f64 as the wrapper runs it, on K4's cases in double: one launch
+    writing the output, or one partial slab per split (each against the
+    float64 twin on its split's sources; the scratch starts as NaN) and
+    the ordered reduction, equal to the slabs summed in split order bit
+    for bit; the whole against the twin within F64_MAX_REL."""
+    kernel = get_kernel(name)
+    g = torch.Generator().manual_seed(4)
+    tx = torch.rand((m, kernel.pd), generator=g, dtype=torch.float64)
+    tr = torch.full((m,), 0.03, dtype=torch.float64)
+    sx = torch.cat([tx[:40], torch.rand((s - 40, kernel.pd), generator=g,
+                                        dtype=torch.float64)])
+    sr = 0.02 + 0.03 * torch.rand((s,), generator=g, dtype=torch.float64)
+    ss = torch.randn((s, kernel.sd), generator=g, dtype=torch.float64) / s
+    tgt, src = cuda_direct.layout(kernel, tx, tr, sx, sr, ss)
+    out = torch.full((m, kernel.od), float("nan"), dtype=torch.float64)
+    dst = out if splits == 1 else torch.full(
+        (splits, m, kernel.od), float("nan"), dtype=torch.float64)
+    assert _entry(host_lib, "direct64", name, core)(
+        tgt.data_ptr(), src.data_ptr(), dst.data_ptr(), m, s, splits,
+        None) == 0
+    if splits > 1:
+        for part, (lo, hi) in zip(dst, cuda_direct.split_bounds(s, splits)):
+            ref = cuda_direct.direct_torch(kernel, tx, tr, sx[lo:hi],
+                                           sr[lo:hi], ss[lo:hi], core)
+            assert _f64_errors(part, ref) <= F64_MAX_REL, (lo, hi)
+        assert _entry(host_lib, "direct64_reduce", name, core)(
+            out.data_ptr(), dst.data_ptr(), m, splits, None) == 0
+        assert torch.equal(out, cuda_direct.reduce_splits_torch(dst))
+    twin = cuda_direct.direct_torch(kernel, tx, tr, sx, sr, ss, core)
+    assert _f64_errors(out, twin) <= F64_MAX_REL

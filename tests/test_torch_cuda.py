@@ -2,7 +2,7 @@
 ragged block width; K8, K9 the same on pre-gathered sources; K10, K11
 fetching by bulk copies; K12, K8 at one step per segment; K13, K10 on
 the ablated grav3d bodies; K4 direct, its source splits and their
-reduction)
+reduction; the accuracy tier's K1-f64 and K4-f64)
 against their plain twins and the fp64 oracle, for every (workload,
 core) instantiation, and the slice on the card against the slice on the
 CPU for every workload and fetch. Every test needs a CUDA device and
@@ -31,9 +31,7 @@ pytestmark = pytest.mark.cuda
 KER = get_kernel("grav3d")
 B = 128
 # (workload, core) of every compiled instantiation
-INSTANCES = [("grav3d", "rm")] + [(k, c) for k in ("vort2d", "vort3d",
-                                                   "vortgrad3d")
-                                  for c in cuda_lib.CUDA_CORES]
+INSTANCES = list(cuda_lib.INSTANCE_CORES)
 IDS = [f"{k}-{c}" for k, c in INSTANCES]
 WORKLOADS = ["grav3d", "vort3d", "vortgrad3d", "vort2d"]
 
@@ -386,10 +384,11 @@ def test_kernels_refuse_bad_lists(dev):
         cuda_pairs.exec_pairs_cuda_t2(
             KER, tgt_geo, src_fm, torch.tensor([8, 0, 0, 0], device=dev),
             gs, torch.zeros((16, 8, B), device=dev))
-    # a core without a CUDA body raises instead of falling back
-    vk = get_kernel("vort3d")
+    # a core the workload has no CUDA body for (v2 is vort3d's only)
+    # raises instead of falling back
+    vk = get_kernel("vort2d")
     vsrc, vgeo = _blocks(dev, vk)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="core_func"):
         cuda_pairs.exec_pairs_cuda(vk, vgeo, vsrc,
                                    torch.tensor([1, 0, 0, 0], device=dev),
                                    gs, core="v2")
@@ -898,3 +897,126 @@ def test_chunked_on_card_matches_cpu(dev, fetch, n_chunks, monkeypatch):
     assert int(info.overflow) == int(cpu_info.overflow) == 0
     assert int(info.n_valid) == int(cpu_info.n_valid)
     assert rel_rms(out.cpu(), cpu_out) <= 1e-5
+
+
+# ------------------------------------------------ the accuracy tier (fp64)
+
+# K1-f64 and K4-f64 against their float64 twins: max error / max |twin|
+F64_MAX_REL = 1e-12
+
+
+def _f64_rel(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k1_f64_matches_twin(dev, name, core):
+    """K1-f64 on double rows against its float64 twin on the CPU within
+    F64_MAX_REL; fp32 rows promoted by the wrapper give the same bits;
+    every fetch of the front door runs it on double rows; at static
+    capacity (the fused solve's launch) the trimmed launch's bits."""
+    kernel = get_kernel(name)
+    src32, geo32 = _blocks(dev, kernel)
+    src_fm, tgt_geo = src32.double(), geo32.double()
+    gt, gs = _groups(dev, [1, 1, 2, 3, 3, 0, 5, 0])
+    inst = cuda_lib.instance(name, core)
+    before = cuda_pairs.LAUNCHES[("exec64", inst)]
+    got = cuda_pairs.exec_pairs64_cuda(kernel, tgt_geo, src_fm, gt, gs,
+                                       final=False, core=core)
+    promoted = cuda_pairs.exec_pairs64_cuda(kernel, geo32, src32, gt, gs,
+                                            final=False, core=core)
+    fetched = [cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core,
+                                     fetch=f, final=False)
+               for f in ("pregather", "dma", "static")]
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[("exec64", inst)] == before + 5
+    twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo.cpu(), src_fm.cpu(),
+                                       gt.cpu(), gs.cpu(), final=False,
+                                       core=core)
+    assert got.dtype == torch.float64
+    assert _f64_rel(got, twin) <= F64_MAX_REL
+    assert all(torch.equal(o, got) for o in [promoted] + fetched)
+    keys = torch.cat([gt[gt != 0], gt.new_zeros(24)])
+    steps = torch.cat([gs[gt != 0], gs.new_zeros((24, gs.shape[1]))])
+    checks = cuda_pairs.RunChecks()
+    capped = cuda_pairs.exec_pairs_capped(kernel, tgt_geo, src_fm, keys,
+                                          steps, checks, core, "dma_i")
+    assert checks.word(dev).tolist() == [0]
+    assert torch.equal(capped, got)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k4_f64_matches_twin_and_oracle(dev, name, core, splits):
+    """K4-f64 (direct at accum_dtype float64) at one split and at 3 plus
+    the reduction: the float64 twin within F64_MAX_REL, the fp64 oracle,
+    two calls bit identical, its launches."""
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 7, 9000, 1500)
+    args = [torch.from_numpy(a) for a in (tx, tr, sx, sr, ss)]
+    if not kernel.uses_tr:
+        args[1] = torch.zeros_like(args[1])
+    cargs = [a.to(dev) for a in args]
+    inst = cuda_lib.instance(name, core)
+    kinds = ("direct64", "direct64_reduce")
+    before = {k: cuda_direct.LAUNCHES[(k, inst)] for k in kinds}
+    f64 = torch.float64
+    got = cuda_direct.direct_cuda(kernel, *cargs, core, splits=splits,
+                                  accum_dtype=f64)
+    again = cuda_direct.direct_cuda(kernel, *cargs, core, splits=splits,
+                                    accum_dtype=f64)
+    torch.cuda.synchronize()
+    assert {k: cuda_direct.LAUNCHES[(k, inst)] - before[k]
+            for k in kinds} == {"direct64": 2,
+                                "direct64_reduce": 2 * (splits > 1)}
+    assert got.dtype == f64 and torch.equal(got, again)
+    twin = cuda_direct.direct_torch(kernel, *args, core, accum_dtype=f64)
+    assert _f64_rel(got, twin) <= F64_MAX_REL
+    orc = direct.direct_oracle(kernel, torch_parts(sx, sr, ss),
+                               torch_parts(tx, tr), core=core)
+    assert _f64_rel(got, orc) <= F64_MAX_REL
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_f64_slice_on_card_matches_cpu(dev, name):
+    """prepare + solve_dtt at accum_dtype float64 with split equivalent
+    rows (order 5 at block 32: two rows a grid) through K1-f64 on the
+    card (and nothing else of the executors) vs the twins on the CPU:
+    the fp32 proxies may differ in their last bits between the two, so
+    1e-6; overflow 0 and the same pair count."""
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 60, 3000)
+    srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
+    cfg = SolverConfig(**SLICE_KW).replace(order=5,
+                                           accum_dtype=torch.float64)
+    cpu_out, cpu_info = dtt.solve_dtt(
+        kernel, cfg, treecode.prepare(kernel, cfg, srcs, targs))
+    before = dict(cuda_pairs.LAUNCHES)
+    gcfg = cfg.replace(pair_backend="cuda")
+    out, info = dtt.solve_dtt(
+        kernel, gcfg, treecode.prepare(kernel, gcfg, _to(srcs, dev),
+                                       _to(targs, dev)))
+    torch.cuda.synchronize()
+    ran = {k for k, v in cuda_pairs.LAUNCHES.items() if v > before.get(k, 0)}
+    assert ran == {("exec64", cuda_lib.instance(name, cfg.core_func))}
+    assert out.dtype == torch.float64
+    assert int(info.overflow) == int(cpu_info.overflow) == 0
+    assert int(info.n_valid) == int(cpu_info.n_valid)
+    assert rel_rms(out.cpu(), cpu_out) <= 1e-6
+
+
+def test_fused_graph_f64_equals_split(dev):
+    """solve_dtt_fused at accum_dtype float64 with split rows: K1-f64 at
+    the list's static capacity inside the captured graph, bit for bit
+    prepare + solve_dtt."""
+    dtt.clear_fused_cache()
+    kernel, srcs, targs = _fused_problem(dev)
+    cfg = SolverConfig(**SLICE_KW).replace(order=5,
+                                           accum_dtype=torch.float64)
+    out, info = dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
+    ref, rinfo = dtt.solve_dtt(kernel, cfg, treecode.prepare(
+        kernel, cfg, srcs, targs))
+    assert torch.equal(out, ref)
+    assert int(info.overflow) == int(rinfo.overflow) == 0
+    dtt.clear_fused_cache()

@@ -103,9 +103,7 @@ def test_constants_follow_direct_cuh():
 
 
 # (workload, core) of every compiled instantiation
-INSTANCES = [("grav3d", "rm")] + [(k, c) for k in ("vort2d", "vort3d",
-                                                   "vortgrad3d")
-                                  for c in cuda_lib.CUDA_CORES]
+INSTANCES = list(cuda_lib.INSTANCE_CORES)
 
 
 @pytest.mark.parametrize("name,core", INSTANCES,

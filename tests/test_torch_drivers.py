@@ -52,6 +52,17 @@ def test_driver_end_to_end_report():
         assert line in out, line
 
 
+@pytest.mark.parametrize("order", [6, 7])
+def test_driver_high_order_split_rows(order):
+    """-o=6 and -o=7 (343 and 512 proxies: their grids span 3 and 4 rows
+    of 128) run, as in the reference, inside the envelope of the orders
+    below them."""
+    out = _run(["-n=2000", "-b=64", f"-o={order}"])
+    errs = _errors(out)
+    assert set(errs) == {"treecode3", "fast"}
+    assert all(rms < 3e-3 for rms in errs.values()), errs
+
+
 def test_driver_stage_toggle_flag():
     """-test= selects stages exactly (test_iterations fixture)."""
     out = _run(["-n=1000", "-b=64", "-test=1,0,0,1,0"])

@@ -1,7 +1,10 @@
 """Port vs reference: the whole slice — treecode.prepare + dtt.solve_dtt
-for grav3d with sibling-paired leaves — on the same inputs, plus the
-port's import boundary and its refusal of unported configuration."""
+for grav3d with sibling-paired leaves — on the same inputs, the keys
+the port used to refuse (split rows, the fp64 tier) against the
+reference, plus the port's import boundary and its refusal of unported
+configuration."""
 
+import contextlib
 import subprocess
 import sys
 
@@ -9,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (SLICE_KW, jax_parts, make_inputs,
+from _torch_parity import (SLICE_KW, jax_parts, jax_x64, make_inputs,
                            rel_rms, torch_parts)
 from onbody_tpu.config import SolverConfig as JConfig
 from onbody_tpu.ops import kernels as JK
@@ -106,15 +109,10 @@ def test_slice_stats_and_launch_counts_on_cpu(slice_run):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    # order < 0 (pair-merge) is ported; order 6's 343 proxies exceed the
-    # 128-slot rows at block 32: split rows
-    ("order", 6, "item 11"), ("tree_mode", "morton", "item 17"),
+    ("tree_mode", "morton", "item 17"),
     ("tree_mode", "bisect", "item 17"), ("tree_quant", "gather", "item 17"),
-    # lean rows are block_size wide (not rounded up to 128): order 3 at
-    # block 32 needs 64 > 32 slots there, which is split rows
-    ("lean_plan", True, "item 11"), ("dtt_traversal", "refine", "item 11"),
-    ("dtt_lists", "flat", "item 17"),
-    ("accum_dtype", torch.float64, "item 9")])
+    ("dtt_traversal", "refine", "item 11"),
+    ("dtt_lists", "flat", "item 17")])
 def test_unported_config_raises(key, value, item):
     cfg = SolverConfig(**SLICE_KW).replace(**{key: value})
     sx, sr, ss, tx, tr = make_inputs(61, 200)
@@ -122,13 +120,61 @@ def test_unported_config_raises(key, value, item):
         ttc.prepare(TKER, cfg, torch_parts(sx, sr, ss), torch_parts(tx, tr))
 
 
+def _slice_vs_reference(seed: int, n: int, x64: bool = False, **kw):
+    """prepare + solve_dtt at the test slice with `kw` in both packages
+    on one input (the reference's executors as XLA code; its fp64 tier
+    with jax_enable_x64 on), and the fp64 oracle."""
+    sx, sr, ss, tx, tr = make_inputs(seed, n)
+    js, jt = jax_parts(sx, sr, ss), jax_parts(tx, tr)
+    tcfg = SolverConfig(**SLICE_KW).replace(**kw)
+    tout, tinfo = tdtt.solve_dtt(TKER, tcfg, ttc.prepare(
+        TKER, tcfg, torch_parts(sx, sr, ss), torch_parts(tx, tr)))
+    with jax_x64() if x64 else contextlib.nullcontext():
+        import jax.numpy as jnp
+        jkw = {k: jnp.float64 if v is torch.float64 else v
+               for k, v in kw.items()}
+        jcfg = JConfig(pair_backend="xla", **SLICE_KW).replace(**jkw)
+        jout, jinfo = jdtt.solve_dtt(JKER, jcfg, jtc.prepare(JKER, jcfg,
+                                                             js, jt))
+        jout = np.asarray(jout)
+    oracle = tdirect.direct_oracle(TKER, torch_parts(sx, sr, ss),
+                                   torch_parts(tx, tr))
+    assert int(tinfo.overflow) == int(jinfo.overflow) == 0
+    return tout, jout, oracle
+
+
+@pytest.mark.parametrize("key,value", [
+    # order 6's 343 proxies span three 128-slot rows at block 32
+    ("order", 6),
+    # lean rows are block_size wide: order 3's 64 slots in two rows of 32
+    ("lean_plan", True),
+    # the accuracy tier (K1-f64's twin, the paired leaf list off)
+    ("accum_dtype", torch.float64)])
+def test_formerly_refused_config_matches_reference(key, value):
+    """Keys the port used to refuse (split rows, ROADMAP item 11; the
+    fp64 tier, item 9) now solve as the reference does: within 1e-5
+    rel-RMS of its solve (fp32 sums in another order) and inside the
+    order-3 envelope against the oracle. The fp64 tier within 1e-7: its
+    sums are double, but its proxies are fp32-stored sums whose last
+    bits differ between the packages' contraction orders, and the far
+    field carries that (~4e-9 here; test_torch_precision_ref.py holds
+    the tier to 1e-9 where the proxies agree)."""
+    f64 = value is torch.float64
+    tout, jout, oracle = _slice_vs_reference(61, 1200, x64=f64,
+                                             **{key: value})
+    assert tout.dtype == (torch.float64 if f64 else torch.float32)
+    assert rel_rms(tout, jout) <= (1e-7 if f64 else 1e-5)
+    assert rel_rms(tout, oracle) < 3e-3
+
+
 def test_split_equivalent_rows_raise():
-    """order 5 at block 32 needs 216 > 128 proxy slots: split rows are
-    not ported and refuse instead of truncating."""
-    cfg = SolverConfig(**SLICE_KW).replace(order=5)
-    sx, sr, ss, tx, tr = make_inputs(62, 500)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttc.prepare(TKER, cfg, torch_parts(sx, sr, ss), torch_parts(tx, tr))
+    """order 5 at block 32 needs 216 > 128 proxy slots: the grids split
+    over two rows, as in the reference, instead of refusing; the solve
+    within 1e-5 of the reference's and more accurate than order 3."""
+    tout, jout, oracle = _slice_vs_reference(62, 1200, order=5)
+    assert rel_rms(tout, jout) <= 1e-5
+    tout3, _, _ = _slice_vs_reference(62, 1200)
+    assert rel_rms(tout, oracle) < rel_rms(tout3, oracle)
 
 
 def test_tuned_config_table_matches_reference():

@@ -118,13 +118,16 @@ def test_other_instructions_per_pair():
 
 def test_every_kernel_kind_has_a_sass_name():
     """sass_report walks every kind with a pair loop (all of
-    cuda_lib.KINDS but K8/K9's and K4's reductions): each names its
-    template, and the segment kernels on pre-gathered sources
-    (exec_pre_segs) are told apart from the id-fetching executors
-    (exec_runs)."""
+    cuda_lib.KINDS but K8/K9's, K4's and K4-f64's reductions): each names
+    its template (the fp64 kernels in SASS_KIND64), and the segment
+    kernels on pre-gathered sources (exec_pre_segs) are told apart from
+    the id-fetching executors (exec_runs)."""
     from onbody_tpu_torch.ops import cuda_lib
-    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS) - {"exec_pre_reduce",
-                                                       "direct_reduce"}
+    assert set(cs.SASS_KIND) == set(cuda_lib.KINDS) - {
+        "exec_pre_reduce", "direct_reduce"} - set(cuda_lib.F64_KINDS)
+    assert set(cs.SASS_KIND64) == set(cuda_lib.F64_KINDS) - {
+        "direct64_reduce"}
+    assert set(cs.SASS_BODY64) == set(cs.WORKLOADS)
     assert set(cs.SOURCE) == set(cs.REPLACES) == set(cuda_lib.KINDS)
     pre = LISTING.replace("9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_",
                           "13exec_pre_segsINS_6Grav3dELb0EEEvPKfS3_PfS4_"
@@ -205,3 +208,62 @@ def test_kernel_sass_compares_code_not_label_numbers():
         LISTING, "exec", "grav3d")
     with pytest.raises(LookupError):
         cs._kernel_sass(LISTING, "exec_t2", "grav3d")
+
+
+def test_v2_ops_match_body_header():
+    """K6-v2's bound reads the per-pair operations counted for the
+    Vatistas core in vort3d_body.cuh."""
+    text = (CSRC / "vort3d_body.cuh").read_text()
+    m = re.search(r"Vatistas core.*?needs[\s/]+(\d+)[\s/]+FP32-pipe"
+                  r"[\s/]+operations[\s/]+and[\s/]+(\d+)[\s/]+MUFU",
+                  text, re.S)
+    assert m is not None
+    assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS_V2["vort3d_v2"]
+
+
+@pytest.mark.parametrize("name", ["grav3d", "vort3d", "vortgrad3d",
+                                  "vort2d"])
+def test_f64_ops_match_body_header(name):
+    """K1-f64's and K4-f64's bounds read the per-pair FP64 operations
+    listed in body64.cuh: the fp32 count plus the refinement's 5."""
+    text = (CSRC / "body64.cuh").read_text()
+    m = re.search(rf"//\s+{name}\s+(\d+) FP64-pipe operations and (\d+) "
+                  r"MUFU", text)
+    assert m is not None
+    assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS64[name]
+    assert cs.PAIR_OPS64[name][0] == cs.PAIR_OPS[name][0] + cs.F64_NEWTON
+
+
+def test_f64_and_v2_bounds():
+    """The fp64 bodies are bound on the FP64 pipe (64 lanes an SM), K6-v2
+    on the FP32 pipe with its own count."""
+    t, pipe = cs.bound_s(1e12, "grav3d_f64", 2e9)
+    assert pipe == "fp64"
+    assert t == pytest.approx(1e12 * 17 / (132 * 64 * 2e9))
+    t, pipe = cs.bound_s(1e12, "vort3d_v2", 2e9)
+    assert pipe == "fp32"
+    assert t == pytest.approx(1e12 * 18 / (132 * 128 * 2e9))
+    assert cs.bound_name("vort3d", "v2") == "vort3d_v2"
+    assert cs.bound_name("vort2d", f64=True) == "vort2d_f64"
+    assert cs.bound_name("grav3d") == "grav3d"
+
+
+def test_per_pair_counts_fp64_and_v2_loops():
+    """_per_pair on an fp64 pair loop (DFMA/DMUL/DADD per MUFU.RSQ64H)
+    and on a v2 loop (two MUFU.RSQ a pair)."""
+    listing = LISTING.replace(
+        "9exec_runsINS_6Grav3dELb0EEEvPKfS3_PfPKiS6_S6_",
+        "11exec64_runsINS_9Grav3dF64EEEvPKdS3_PdPKiS6_S6_").replace(
+        "FADD", "DADD").replace("FFMA", "DFMA").replace(
+        "FMUL", "DMUL").replace("MUFU.RSQ", "MUFU.RSQ64H")
+    loops = cs.sass_loops(listing)
+    got = cs._per_pair(loops, cs.SASS_KIND64["exec64"]
+                       + cs.SASS_BODY64["grav3d"], "MUFU.RSQ64H", 1,
+                       cs.FP64_OPS)
+    assert got["pairs_per_iter"] == 2
+    assert got["ops"] == 2.5 and got["mufu"] == 1.0
+    v2 = LISTING.replace("6Grav3dE", "6Vort3dINS_6CoreV2EEE")
+    got = cs._per_pair(cs.sass_loops(v2), cs.SASS_KIND["exec"]
+                       + ("6Vort3d", "6CoreV2"), "MUFU.RSQ", 2,
+                       cs.FP32_OPS)
+    assert got["pairs_per_iter"] == 1 and got["mufu"] == 2.0

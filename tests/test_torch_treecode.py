@@ -106,16 +106,18 @@ def test_target_geo_fm_matches_reference_and_full_plan(lean_trees):
 
 def test_lean_rows_are_block_size_wide():
     """Lean rows are block_size wide (the Blocks path rounds up to 128):
-    a grid wider than the block refuses as split rows, as in the
-    reference (M <= block_size * parts)."""
+    a grid wider than the block splits over extension rows, as in the
+    reference (M <= block_size * parts): order 4's 125 proxies take two
+    rows of 64."""
     sx, sr, ss, _, _ = kernel_inputs(TK.KERNELS["grav3d"], 71, 500)
     st, sp, _ = jbuild.build_tree(jax_parts(sx, sr, ss), 64)
     tree, parts = interop.tree_from_numpy(st), interop.parts_from_numpy(sp)
     got = teq.barycentric_fm(tree, parts, 3, "grav3d", pad8=False)
     assert got.shape == (2 * tree.nleaf, 5, 64)
     _close(got, jeq.barycentric_fm(st, sp, 3, "grav3d", pad8=False))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teq.barycentric_fm(tree, parts, 4, "grav3d")
+    got = teq.barycentric_fm(tree, parts, 4, "grav3d")
+    assert got.shape == (3 * tree.nleaf, 8, 64)
+    _close(got, jeq.barycentric_fm(st, sp, 4, "grav3d"))
 
 
 # ---------------------------------------------------------------- solvers

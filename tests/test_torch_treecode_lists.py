@@ -98,8 +98,13 @@ def test_build_treecode_pairs_identical(trees, mac, theta, widths):
 
 
 def test_split_rows_refuse_in_treecode_lists(trees):
+    """Split source rows (src_parts 2) no longer refuse: the list names
+    each accepted interior node's extension row, as the reference's."""
     st, tt = trees
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tl.build_treecode_pairs(interop.tree_from_numpy(st),
-                                interop.tree_from_numpy(tt), 1.0, "boxwise",
-                                src_parts=2)
+    ref = jl.build_treecode_pairs(st, tt, 1.0, "boxwise", src_parts=2)
+    got = tl.build_treecode_pairs(interop.tree_from_numpy(st),
+                                  interop.tree_from_numpy(tt), 1.0,
+                                  "boxwise", src_parts=2)
+    for f in ("tgt", "src", "n_valid", "overflow"):
+        _same(getattr(got, f), getattr(ref, f), f)
+    assert (got.src >= 2 * st.nleaf).any()
