@@ -55,6 +55,10 @@ import torch
 PAIR_BACKENDS = ("auto", "cuda", "torch")
 PAIR_FETCHES = ("pregather", "dma", "dma_i", "dma_p", "static")
 LIST_COMPACTS = ("scatter", "sort", "idsort")
+# "level": simultaneous descent (one MAC round a target level); "refine":
+# the reference's refine-the-larger walk (traverse/lists.py
+# build_dtt_pairs), lists list_width slots wide
+DTT_TRAVERSALS = ("level", "refine")
 MAC_GEOMETRIES = ("quant", "f32")
 FLOAT_DTYPES = (torch.float32, torch.float64)
 
@@ -146,8 +150,9 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
     if cfg.list_compact not in LIST_COMPACTS:
         raise ValueError(f"list_compact {cfg.list_compact!r}: one of "
                          f"{LIST_COMPACTS}")
-    if cfg.dtt_traversal != "level":
-        no(f"dtt_traversal={cfg.dtt_traversal!r}", 11)
+    if cfg.dtt_traversal not in DTT_TRAVERSALS:
+        raise ValueError(f"dtt_traversal {cfg.dtt_traversal!r}: one of "
+                         f"{DTT_TRAVERSALS}")
     if cfg.dtt_lists != "rows":
         no(f"dtt_lists={cfg.dtt_lists!r}", 17)
     for key in ("accum_dtype", "storage_dtype"):

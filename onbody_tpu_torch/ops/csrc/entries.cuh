@@ -33,7 +33,10 @@
 // K1, K2, K10 and K11 take the run count twice: n_runs_dev, the count in
 // device memory (null: the eager wrappers' trimmed tables, n_runs runs),
 // and n_runs, the grid (with n_runs_dev: the list's static capacity; CTAs
-// at or past the count exit at once).
+// at or past the count exit at once). The segment kernels of K8, K9 and
+// K12 take their segment count so (n_seg_dev, n_seg), and the reduction
+// its split-run count (n_split_dev, n_split; with n_split_dev, n_split is
+// the grid's rows, which walk the count).
 // Each returns cudaGetLastError() after its launch (0 on success); the
 // ctypes wrappers (ops/cuda_lib.py) raise on anything else.
 #pragma once
@@ -83,29 +86,30 @@ int occupancy64(int kind, int B, int* info) {
       const float* tgt_geo, const float* src_gathered, float* out,         \
       float* partials, const int* run_tgt, const int* run_seg,             \
       const int* seg_run, const int* seg_off, const int* steps,            \
-      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
-      void* stream) {                                                      \
+      const int* n_slots, const int* n_seg_dev, int n_seg, int B, int C,   \
+      int G, int od8, void* stream) {                                      \
     return onbody::launch_exec_pre_seg<BODY, false>(                       \
         tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
-        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
+        seg_off, steps, n_slots, n_seg_dev, n_seg, B, C, G, od8, stream);  \
   }                                                                        \
   extern "C" int onbody_exec_pre_t2_seg_##INST(                            \
       const float* tgt_geo, const float* src_gathered, float* out,         \
       float* partials, const int* run_tgt, const int* run_seg,             \
       const int* seg_run, const int* seg_off, const int* steps,            \
-      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
-      void* stream) {                                                      \
+      const int* n_slots, const int* n_seg_dev, int n_seg, int B, int C,   \
+      int G, int od8, void* stream) {                                      \
     return onbody::launch_exec_pre_seg<BODY, true>(                        \
         tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
-        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
+        seg_off, steps, n_slots, n_seg_dev, n_seg, B, C, G, od8, stream);  \
   }                                                                        \
   extern "C" int onbody_exec_pre_reduce_##INST(                            \
       float* out, const float* partials, const int* run_tgt,               \
-      const int* run_seg, const int* split_runs, int n_split, int rows,    \
-      int B, int od8, void* stream) {                                      \
+      const int* run_seg, const int* split_runs, const int* n_split_dev,   \
+      int n_split, int rows, int B, int od8, void* stream) {               \
     return onbody::launch_reduce_segs<BODY>(out, partials, run_tgt,        \
-                                            run_seg, split_runs, n_split,  \
-                                            rows, B, od8, stream);         \
+                                            run_seg, split_runs,           \
+                                            n_split_dev, n_split, rows, B, \
+                                            od8, stream);                  \
   }                                                                        \
   extern "C" int onbody_exec_dma_##INST(                                   \
       const float* tgt_geo, const float* src_fm, float* out,               \
@@ -129,11 +133,11 @@ int occupancy64(int kind, int B, int* info) {
       const float* tgt_geo, const float* src_gathered, float* out,         \
       float* partials, const int* run_tgt, const int* run_seg,             \
       const int* seg_run, const int* seg_off, const int* steps,            \
-      const int* n_slots, int n_seg, int B, int C, int G, int od8,         \
-      void* stream) {                                                      \
+      const int* n_slots, const int* n_seg_dev, int n_seg, int B, int C,   \
+      int G, int od8, void* stream) {                                      \
     return onbody::launch_exec_pre_seg<BODY, false>(                       \
         tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,   \
-        seg_off, steps, n_slots, n_seg, B, C, G, od8, stream);             \
+        seg_off, steps, n_slots, n_seg_dev, n_seg, B, C, G, od8, stream);  \
   }                                                                        \
   extern "C" int onbody_occupancy_##INST(int kind, int B, int C, int G,    \
                                          int* info) {                      \

@@ -347,6 +347,16 @@ int launch_exec(const float* tgt_geo, const float* src_fm, float* out,
 // Offsets are 64-bit as above: a chunk stays under 2^31 floats, the
 // row*od8*B output offsets at 1e8 do not.
 //
+// The segment and split-run counts: the eager wrappers plan a chunk on
+// the host and launch n_seg segment CTAs and n_split reduction rows
+// (n_seg_dev, n_split_dev null). The fused solve plans each chunk on the
+// card (ops/cuda_pairs.py capped_segments), so both counts live in device
+// memory: the segment grid is the chunk's capacity, a CTA at or past the
+// count exiting (exec_pre_segs_capped), and the reduction's rows, fewer
+// than a chunk's split runs can be, walk the split runs below the count
+// (reduce_segs_capped). Every segment and every split run is summed as in
+// the eager launches, bit for bit.
+//
 // K12 (pair_fetch "static"): K8 at one step per segment. Replaces
 // onbody_tpu/ops/pallas_pairs.py:_exec_chunk_static with _body_static.
 // The TPU kernel gathers a chunk's targets and sources so that every index
@@ -391,13 +401,49 @@ __global__ void exec_pre_segs(const float* __restrict__ tgt_geo,
       row0, rd, B, od8, ring);
 }
 
+// The fused solve's launch of exec_pre_segs: the grid is the chunk's
+// capacity and the plan's segment count is read from *n_seg_dev; a CTA at
+// or past it exits before it touches memory, every other one is
+// exec_pre_segs' CTA. A kernel of its own, so the eager launch's code is
+// unchanged.
+template <class Body, bool kPaired>
+__global__ void exec_pre_segs_capped(const float* __restrict__ tgt_geo,
+                                     const float* __restrict__ src_gathered,
+                                     float* __restrict__ out,
+                                     float* __restrict__ partials,
+                                     const int* __restrict__ run_tgt,
+                                     const int* __restrict__ run_seg,
+                                     const int* __restrict__ seg_run,
+                                     const int* __restrict__ seg_off,
+                                     const int* __restrict__ steps,
+                                     const int* __restrict__ n_slots,
+                                     const int* __restrict__ n_seg_dev,
+                                     int B, int C, int G, int od8) {
+  using T = PreTile<Body, kPaired>;
+  extern __shared__ __align__(16) float ring[];  // kPreStages staged blocks
+  const int seg = blockIdx.x;
+  if (seg >= *n_seg_dev) return;  // past the plan
+  const int run = seg_run[seg];
+  const bool whole = run_seg[run + 1] - run_seg[run] == 1;
+  const int64_t row0 =
+      kPaired ? 2 * (int64_t)run_tgt[run] : (int64_t)run_tgt[run];
+  const GatheredCursor rd{seg_off[seg], 0, seg_off[seg + 1], G, n_slots,
+                          steps, src_gathered, (int64_t)G * C * B,
+                          (int64_t)C * B};
+  exec_tile<Body, kPaired>(
+      tgt_geo, out,
+      whole ? nullptr
+            : partials + (int64_t)seg * T::kRowsT * Body::kOut * B,
+      row0, rd, B, od8, ring);
+}
+
 template <class Body, bool kPaired>
 int launch_exec_pre_seg(const float* tgt_geo, const float* src_gathered,
                         float* out, float* partials, const int* run_tgt,
                         const int* run_seg, const int* seg_run,
                         const int* seg_off, const int* steps,
-                        const int* n_slots, int n_seg, int B, int C, int G,
-                        int od8, void* stream) {
+                        const int* n_slots, const int* n_seg_dev, int n_seg,
+                        int B, int C, int G, int od8, void* stream) {
   if (n_seg <= 0) return (int)cudaSuccess;
   int threads, grid_y;
   size_t smem;
@@ -405,12 +451,21 @@ int launch_exec_pre_seg(const float* tgt_geo, const float* src_gathered,
   const dim3 grid(n_seg, grid_y);
   // always: an occupancy query at another B may have set a smaller limit
   const cudaError_t err = cudaFuncSetAttribute(
-      exec_pre_segs<Body, kPaired>,
+      n_seg_dev ? (const void*)exec_pre_segs_capped<Body, kPaired>
+                : (const void*)exec_pre_segs<Body, kPaired>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  exec_pre_segs<Body, kPaired><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,
-      seg_off, steps, n_slots, B, C, G, od8);
+  if (n_seg_dev) {
+    exec_pre_segs_capped<Body, kPaired><<<grid, threads, smem,
+                                          (cudaStream_t)stream>>>(
+        tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,
+        seg_off, steps, n_slots, n_seg_dev, B, C, G, od8);
+  } else {
+    exec_pre_segs<Body, kPaired><<<grid, threads, smem,
+                                   (cudaStream_t)stream>>>(
+        tgt_geo, src_gathered, out, partials, run_tgt, run_seg, seg_run,
+        seg_off, steps, n_slots, B, C, G, od8);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -451,15 +506,75 @@ __global__ void reduce_segs(float* __restrict__ out,
 
 constexpr int kReduceThreads = 256;
 
+// The fused solve's launch of the reduction: the plan's count of split
+// runs is read from *n_split_dev, and the grid's rows (a quarter of the
+// chunk's step slots, half the most split runs it can hold) take the
+// split runs k, k + gridDim.x, ... below it; each value is summed as
+// reduce_segs sums it. A row past the count exits, and a row takes a
+// second run only where a chunk holds more split runs than rows. The
+// kernel is a chain of dependent loads, so a row's first entry of
+// split_runs and its run's segment bounds (the tables have a slot for
+// every row) are loaded before the count is compared: the count adds no
+// step to the chain. Of six launch shapes timed against the trimmed
+// launch (PERF.md), this was the fastest. A kernel of its own, so the
+// eager launch's code is unchanged.
+template <class Body>
+__global__ void reduce_segs_capped(float* __restrict__ out,
+                                   const float* __restrict__ partials,
+                                   const int* __restrict__ run_tgt,
+                                   const int* __restrict__ run_seg,
+                                   const int* __restrict__ split_runs,
+                                   const int* __restrict__ n_split_dev,
+                                   int rows, int B, int od8) {
+  const int count = *n_split_dev;
+  int k = blockIdx.x;
+  int run = split_runs[k];
+  int s0 = run_seg[run], s1 = run_seg[run + 1];
+  const int per = rows * Body::kOut * B;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= per) return;
+  const int r = e / (Body::kOut * B);
+  while (k < count) {
+    const float* p = partials + (int64_t)s0 * per + e;
+    float v = p[0];
+    int s = 1;
+    for (; s + 4 <= s1 - s0; s += 4) {  // four loads in flight, in order
+      const float a = p[(int64_t)s * per], b = p[(int64_t)(s + 1) * per];
+      const float c = p[(int64_t)(s + 2) * per];
+      const float d = p[(int64_t)(s + 3) * per];
+      v += a;
+      v += b;
+      v += c;
+      v += d;
+    }
+    for (; s < s1 - s0; ++s) v += p[(int64_t)s * per];
+    const int64_t row = (int64_t)run_tgt[run] * rows + r;
+    out[row * od8 * B + (e - r * Body::kOut * B)] += v;
+    k += gridDim.x;
+    if (k >= count) break;
+    run = split_runs[k];
+    s0 = run_seg[run];
+    s1 = run_seg[run + 1];
+  }
+}
+
 template <class Body>
 int launch_reduce_segs(float* out, const float* partials, const int* run_tgt,
                        const int* run_seg, const int* split_runs,
-                       int n_split, int rows, int B, int od8, void* stream) {
+                       const int* n_split_dev, int n_split, int rows, int B,
+                       int od8, void* stream) {
   if (n_split <= 0) return (int)cudaSuccess;
   const int per = rows * Body::kOut * B;
   const dim3 grid(n_split, (per + kReduceThreads - 1) / kReduceThreads);
-  reduce_segs<Body><<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      out, partials, run_tgt, run_seg, split_runs, rows, B, od8);
+  if (n_split_dev) {
+    reduce_segs_capped<Body><<<grid, kReduceThreads, 0,
+                               (cudaStream_t)stream>>>(
+        out, partials, run_tgt, run_seg, split_runs, n_split_dev, rows, B,
+        od8);
+  } else {
+    reduce_segs<Body><<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
+        out, partials, run_tgt, run_seg, split_runs, rows, B, od8);
+  }
   return (int)cudaGetLastError();
 }
 

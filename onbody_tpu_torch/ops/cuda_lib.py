@@ -74,19 +74,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # K1/K2/K10/K11: tgt_geo, src_fm, out, run_tgt, run_off, pair_s, the run
 # count in device memory (None: n_runs), n_runs (the grid), B, C, G, od8,
-# stream; K13 ("exec_ablate") the same without the device count
+# stream; K13 ("exec_ablate") the same without the device count; the
+# segment kernels (K8, K9, K12) and the reduction likewise take their
+# segment (split-run) count in device memory, None, before the grid
 _ARGTYPES = {
     "exec": [_P] * 7 + [_I] * 5 + [_P],
     "exec_t2": [_P] * 7 + [_I] * 5 + [_P],
     "direct": [_P] * 3 + [_I] * 3 + [_P],
     "direct_reduce": [_P] * 2 + [_I] * 2 + [_P],
-    "exec_pre_seg": [_P] * 10 + [_I] * 5 + [_P],
-    "exec_pre_t2_seg": [_P] * 10 + [_I] * 5 + [_P],
-    "exec_pre_reduce": [_P] * 5 + [_I] * 4 + [_P],
+    "exec_pre_seg": [_P] * 11 + [_I] * 5 + [_P],
+    "exec_pre_t2_seg": [_P] * 11 + [_I] * 5 + [_P],
+    "exec_pre_reduce": [_P] * 6 + [_I] * 4 + [_P],
     "exec_dma": [_P] * 7 + [_I] * 5 + [_P],
     "exec_dmap": [_P] * 7 + [_I] * 5 + [_P],
     "exec_ablate": [_P] * 6 + [_I] * 5 + [_P],
-    "exec_static": [_P] * 10 + [_I] * 5 + [_P],
+    "exec_static": [_P] * 11 + [_I] * 5 + [_P],
     "exec64": [_P] * 7 + [_I] * 5 + [_P],
     "direct64": [_P] * 3 + [_I] * 3 + [_P],
     "direct64_reduce": [_P] * 2 + [_I] * 2 + [_P],

@@ -31,11 +31,14 @@ and, when a run was split, an ordered reduction of its segments' partial
 rows; `exec_pairs_pre_split_torch` is the plain twin of that split. K12
 is K8 at one step per segment.
 
-`exec_pairs_capped` is the dma family's front door at a list's static
-capacity, the fused solve's (traverse/dtt.py solve_dtt_fused): the run
-table made on the list's device (`capped_runs`), K1/K2/K10/K11 launched
-with the run count in device memory, the id checks collected in a
-`RunChecks` and read once after the solve; nothing waits on the host.
+`exec_pairs_capped` is the front door at a list's static capacity, the
+fused solve's (traverse/dtt.py solve_dtt_fused): the run table made on
+the list's device (`capped_runs`), K1/K2/K10/K11 launched with the run
+count in device memory; for 'pregather' and 'static' each gather chunk's
+segment plan made there too (`capped_segments`) and K8/K9/K12 and the
+reduction launched with the segment and split-run counts in device
+memory; the id checks collected in a `RunChecks` and read once after
+the solve; nothing waits on the host.
 
 The accuracy tier (accum_dtype float64): double source rows run K1-f64
 (`exec_pairs64_cuda`, csrc/fp64.cuh) through both front doors whatever
@@ -578,8 +581,8 @@ def launch_segments(plan: SegPlan, tgt_geo, src_gathered, out_fm,
         plan.run_tgt.data_ptr(), plan.run_seg.data_ptr(),
         plan.seg_run.data_ptr(), plan.seg_off.data_ptr(),
         plan.steps.data_ptr(),
-        None if plan.n_slots is None else plan.n_slots.data_ptr(), n_seg, b,
-        gc // group, group, out_fm.shape[1],
+        None if plan.n_slots is None else plan.n_slots.data_ptr(), None,
+        n_seg, b, gc // group, group, out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
     LAUNCHES[(plan.kind, inst)] += 1
@@ -605,7 +608,7 @@ def reduce_segments_cuda(plan: SegPlan, out_fm, partials):
                          f"the plan do not match")
     rc = getattr(cuda_lib.lib(), name)(
         out_fm.data_ptr(), partials.data_ptr(), plan.run_tgt.data_ptr(),
-        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(),
+        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(), None,
         plan.split_runs.numel(), rows, b, out_fm.shape[1],
         cuda_lib.stream_ptr(out_fm.device))
     cuda_lib.check(rc, name)
@@ -1070,6 +1073,146 @@ class RunChecks:
                                  "steps; the list must be front-packed")
 
 
+class CappedSegments(NamedTuple):
+    """The segment plan of a gathered chunk at its static capacity P (its
+    CappedRuns'), made on the chunk's device with no wait on the host
+    (capped_segments): segments [0, n_seg) of seg_run (P,) and seg_off
+    (P + 1,) and runs [0, n_runs] of run_seg (P + 2,) are _plan_segments'
+    tables and split runs [0, n_split) of split_runs (P + 1,) the eager
+    plan's (SegPlan), all int32; n_seg and n_split (1,) int32 are 0 when
+    the runs' count is."""
+    seg_run: torch.Tensor
+    seg_off: torch.Tensor
+    run_seg: torch.Tensor
+    split_runs: torch.Tensor
+    n_seg: torch.Tensor
+    n_split: torch.Tensor
+
+
+def capped_segments(runs: CappedRuns, seg_steps) -> CappedSegments:
+    """_plan_segments (at seg_steps, an int or a () tensor on the card,
+    >= 1) and the split runs of the eager plan, on a chunk's capped run
+    table: each run's segment count from its length, their starts by a
+    cumsum, each segment's run by a scatter and a cumsum, the split runs
+    placed by a cumsum and a scatter (no nonzero, no repeat_interleave,
+    no host read). Runs past runs.n_runs have no segment, so the tables'
+    prefixes are the eager plan's integer for integer."""
+    p = runs.run_tgt.shape[0] - 1
+    dev = runs.run_tgt.device
+    n = runs.n_runs.long()
+    off = runs.run_off.long()
+    r = torch.arange(p + 1, device=dev)
+    live = r < n
+    lens = torch.where(live, off[1:] - off[:-1], 0)
+    nseg = (lens + seg_steps - 1) // seg_steps
+    run_seg = torch.cat([nseg.new_zeros(1), torch.cumsum(nseg, 0)])
+    n_seg = run_seg[n]
+    # each segment's run: a step up at every later run's first segment
+    # (slot p is the dump of the runs that add none), summed
+    up = torch.zeros(p + 1, dtype=torch.long, device=dev).scatter_(
+        0, torch.where(live & (r > 0), run_seg[:-1], p), 1)
+    seg_run = torch.cumsum(up, 0)[:p]
+    rank = torch.arange(p, device=dev) - run_seg[seg_run]
+    seg_off = torch.cat([off[seg_run] + rank * seg_steps,
+                         off.new_zeros(1)]).scatter_(0, n_seg, off[n])
+    split = nseg > 1
+    pos = torch.cumsum(split, 0) - 1
+    split_runs = r.new_zeros(p + 2).scatter_(
+        0, torch.where(split, pos, p + 1), r)[:p + 1]
+    return CappedSegments(*(t.to(torch.int32) for t in (
+        seg_run, seg_off, run_seg, split_runs, n_seg, split.sum().view(1))))
+
+
+def capped_seg_steps(kind: str, inst: str, group_t, b: int, c: int,
+                     g: int):
+    """seg_steps_for's S of a chunk's K8/K9 segment kernel, on the card:
+    the chunk's real steps counted there (a () int64 tensor)."""
+    ctas, sms = _resident_ctas(kind, inst, b, c, g,
+                               group_t.device.index or 0)
+    n_real = (group_t != 0).sum()
+    return (n_real // (SEG_WAVES * sms * max(ctas, 1))).clamp(min=1)
+
+
+def _exec_pregather_capped(kind: str, kernel, tgt_geo, src_fm, group_t,
+                           group_s, out_fm, core: str, checks: RunChecks):
+    """_exec_pregather on a list kept at its static capacity: the same
+    chunks (the real steps form a prefix, so their bounds are the eager
+    ones), each gathered whole into one buffer, its run table and segment
+    plan made on the card (capped_runs, capped_segments at S from
+    capped_seg_steps; K12 at 1) with the error code added to `checks`,
+    then `kind`'s segment kernel (K8 "exec_pre", K9 "exec_pre_t2", K12
+    "exec_static") launched at the chunk's capacity and the reduction on
+    a quarter of it (its rows walk the split runs), the counts read on
+    the card, the partial rows in a scratch of the chunk's capacity
+    allocated once per list. CPU tensors take the twins on the same chunks, masked as
+    exec_pairs_capped masks the dma family's. A chunk that fails its checks adds nothing; a real step
+    after a pad step anywhere in the list fails every chunk (RUN_GAP)."""
+    paired = kind == "exec_pre_t2"
+    launched = kind if kind == "exec_static" else kind + "_seg"
+    inst = cuda_lib.instance(kernel.name, core)
+    name = cuda_lib.entry(launched, inst)
+    p, g = group_s.shape
+    nn_s, c, b = src_fm.shape
+    nn_keys = tgt_geo.shape[0] // (2 if paired else 1)
+    cuda = tgt_geo.device.type == "cuda"
+    if cuda:
+        _one_cuda_device(name, tgt_geo, src_fm, group_t, group_s, out_fm)
+        _check_layout(kernel, tgt_geo, out_fm, c, paired, src_fm=src_fm)
+        if max(tgt_geo.shape[0], p) >= 2 ** 31:
+            raise ValueError("pair executor: sizes must fit in int32")
+    chunk = pregather_chunk(g, c, b)
+    real = group_t != 0
+    gap = (real[1:] & ~real[:-1]).any().to(torch.int32) * RUN_GAP
+    # ids out of range gather row 0 (their chunk fails RUN_SOURCES)
+    ids = torch.where((group_s >= 0) & (group_s < nn_s), group_s, 0)
+    buf = src_fm.new_empty((min(p, chunk) * g, c, b))
+    rows = 2 if paired else 1
+    partials = None
+    for i in range(0, p, chunk):
+        gt_c, gs_c = group_t[i:i + chunk], group_s[i:i + chunk]
+        runs = capped_runs(gt_c, gs_c, nn_keys, nn_s)
+        bad = runs.bad | gap
+        checks.add(name, nn_keys, nn_s, bad)
+        src_c = _pregather(kernel.name, src_fm, ids[i:i + chunk], b,
+                           pad8=False, out=buf)
+        if not cuda:
+            gt_m = torch.where(bad == 0, gt_c, 0)
+            if paired:
+                exec_pairs_pre_torch_t2(kernel, tgt_geo, src_c, gt_m,
+                                        out_fm, core, g)
+            else:
+                exec_pairs_pre_torch(kernel, tgt_geo, src_c, gt_m, out_fm,
+                                     False, core, g)
+            continue
+        runs = runs._replace(n_runs=torch.where(bad == 0, runs.n_runs, 0))
+        cap = gt_c.shape[0]
+        seg_steps = 1 if kind == "exec_static" else capped_seg_steps(
+            launched, inst, gt_c, b, c, g)
+        segs = capped_segments(runs, seg_steps)
+        if partials is None:
+            partials = out_fm.new_empty((cap, rows, kernel.od, b))
+        slots = n_real_slots(gs_c).to(torch.int32)
+        steps = torch.arange(cap, dtype=torch.int32, device=gt_c.device)
+        stream = cuda_lib.stream_ptr(out_fm.device)
+        rc = getattr(cuda_lib.lib(), name)(
+            tgt_geo.data_ptr(), src_c.data_ptr(), out_fm.data_ptr(),
+            partials.data_ptr(), runs.run_tgt.data_ptr(),
+            segs.run_seg.data_ptr(), segs.seg_run.data_ptr(),
+            segs.seg_off.data_ptr(), steps.data_ptr(), slots.data_ptr(),
+            segs.n_seg.data_ptr(), cap, b, c, g, out_fm.shape[1], stream)
+        cuda_lib.check(rc, name)
+        LAUNCHES[(launched, inst)] += 1
+        red = cuda_lib.entry("exec_pre_reduce", inst)
+        rc = getattr(cuda_lib.lib(), red)(
+            out_fm.data_ptr(), partials.data_ptr(), runs.run_tgt.data_ptr(),
+            segs.run_seg.data_ptr(), segs.split_runs.data_ptr(),
+            segs.n_split.data_ptr(), max(1, cap // 4), rows, b,
+            out_fm.shape[1], stream)
+        cuda_lib.check(rc, red)
+        LAUNCHES[("exec_pre_reduce", inst)] += 1
+    return out_fm
+
+
 # the kernel each dma-family fetch runs on an unpaired list
 _BY_ID = {"dma_i": "exec", "dma": "exec_dma", "dma_p": "exec_dmap"}
 
@@ -1078,28 +1221,34 @@ def exec_pairs_capped(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
                       checks: RunChecks, core: str = "rm",
                       fetch: str = "dma_i", out_fm=None,
                       paired: bool = False):
-    """The dma family's executors on a list kept at its static capacity,
-    as the fused solve runs them: the run table made on the list's device
-    (capped_runs) and its checks added to `checks`, then K1, K10 or K11
-    (paired: K2, parent-keyed steps) launched with the run count in device
-    memory, one CTA per step slot, those past the count exiting at once;
-    nothing waits on the host. CPU tensors take the twins on the same
-    list. A list that fails its checks adds nothing (its run count is 0;
-    the twins see pad steps). Adds into out_fm (zeros when None) and
-    returns it, feature-major. Double source rows run K1-f64 (tgt_geo
-    promoted; no paired form)."""
+    """The executors on a list kept at its static capacity, as the fused
+    solve runs them. The dma family: the run table made on the list's
+    device (capped_runs) and its checks added to `checks`, then K1, K10
+    or K11 (paired: K2, parent-keyed steps) launched with the run count
+    in device memory, one CTA per step slot, those past the count exiting
+    at once. 'pregather' and 'static': _exec_pregather_capped, K8 (paired:
+    K9) or K12 and the reduction per gather chunk on a plan made on the
+    card. Nothing waits on the host. CPU tensors take the twins on the
+    same list. A list that fails its checks adds nothing (its run count
+    is 0; the twins see pad steps). Adds into out_fm (zeros when None)
+    and returns it, feature-major. Double source rows run K1-f64 for
+    every fetch (tgt_geo promoted; no paired form)."""
     _check_fetch(fetch)
-    if fetch not in _BY_ID:
-        raise NotImplementedError(
-            f"pair_fetch={fetch!r} at static capacity is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
     f64 = src_fm.dtype == torch.float64
     if f64:
         if paired:
             raise ValueError("sibling-paired lists have no fp64 executor")
         tgt_geo = tgt_geo.double()
+    elif paired and fetch == "static":
+        raise ValueError("sibling-paired lists need a dma-family or "
+                         "pregather pair_fetch")
     if out_fm is None:
         out_fm = _zeros_fm(kernel, tgt_geo)
+    if not f64 and fetch in ("pregather", "static"):
+        kind = ("exec_static" if fetch == "static" else
+                "exec_pre_t2" if paired else "exec_pre")
+        return _exec_pregather_capped(kind, kernel, tgt_geo, src_fm,
+                                      group_t, group_s, out_fm, core, checks)
     kind = "exec64" if f64 else "exec_t2" if paired else _BY_ID[fetch]
     inst = (kernel.name if kernel.name == "grav3d"
             else f"{kernel.name}_{core}")

@@ -1,7 +1,8 @@
 """O(N) dual-tree traversal ("fastsumm") solver (port of
-onbody_tpu/traverse/dtt.py, level traversal).
+onbody_tpu/traverse/dtt.py).
 
-Lists come from the simultaneous-descent builder, every interaction
+Lists come from the simultaneous descent (dtt_traversal "level") or
+the refine-the-larger walk ("refine"), every interaction
 type runs through the one pair executor (far contributions land in the
 target equivalent rows of the same accumulator), and the prolongation is
 a top-down per-level barycentric interpolation (calcBarycentricDownward,
@@ -126,23 +127,32 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
     (exec.exec_pairs). cfg.accum_dtype float64 runs every pass in double
     (K1-f64, the paired leaf list off, as the reference's dtt.py:221);
     orders whose grids exceed the block row split them over extension
-    rows (tree/equivalents.py n_eq_parts)."""
+    rows (tree/equivalents.py n_eq_parts). dtt_traversal "refine" builds
+    lists.build_dtt_pairs' lists, cfg.list_width slots a row, with no
+    paired leaf list (reference dtt.py:214-244)."""
     check_supported(cfg, kernel)
     theta = cfg.theta_dtt if theta is None else theta
     stree, ttree = plan.stree, plan.ttree
     # split equivalent rows: both trees share block size and order, so
     # the source and target grids split alike (reference dtt.py:201)
     parts = eq.n_eq_parts(plan.tgt_geo.shape[-1], cfg.order, kernel.pd)
+    refine = cfg.dtt_traversal == "refine"
     # the accuracy tier has no paired executor (reference dtt.py:221)
-    use_p2 = (cfg.dtt_leaf_pair2 and cfg.pair_fetch != "static"
+    use_p2 = (cfg.dtt_leaf_pair2 and not refine
+              and cfg.pair_fetch != "static"
               and cfg.accum_dtype != torch.float64
               and stree.levels <= ttree.levels and ttree.levels >= 1)
     n_live = plan.tgt_sorted.n_real
     pl2 = None
+    slot_width = cfg.list_width if refine else cfg.frontier_width
     kw = dict(n_live=n_live, compact=cfg.list_compact, src_parts=parts,
               tgt_parts=parts)
     with phase(timer, "lists"):
-        if use_p2:
+        if refine:
+            pl = lists.build_dtt_pairs(stree, ttree, theta,
+                                       cfg.frontier_width, cfg.list_width,
+                                       src_parts=parts, tgt_parts=parts)
+        elif use_p2:
             pl, pl2 = lists.build_dtt_pairs_level2(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
                 **kw)
@@ -150,7 +160,7 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
             pl = lists.build_dtt_pairs_level(
                 stree, ttree, theta, cfg.frontier_width, cfg.mac_geometry,
                 **kw)
-    out, info = pexec.exec_pairs(kernel, cfg, plan, pl, cfg.frontier_width,
+    out, info = pexec.exec_pairs(kernel, cfg, plan, pl, slot_width,
                                  cfg.cap_groups_dtt, raw2=pl2, timer=timer,
                                  checks=checks)
     with phase(timer, "downward"):
@@ -168,10 +178,6 @@ def solve_dtt(kernel: Kernel, cfg: SolverConfig, plan: Plan,
 # ------------------------------------------------------------ fused solve
 
 def _check_fused(cfg: SolverConfig, device) -> None:
-    if cfg.pair_fetch in ("pregather", "static"):
-        raise NotImplementedError(
-            f"solve_dtt_fused with pair_fetch={cfg.pair_fetch!r} is not "
-            "ported yet (ROADMAP.md Queue 1 item 7)")
     if device.type == "cuda" and pair_backend(cfg) == "torch":
         raise ValueError("solve_dtt_fused on the card runs the kernels: "
                          "pair_backend 'torch' waits on the host")
@@ -315,8 +321,10 @@ def solve_dtt_fused(kernel: Kernel, cfg: SolverConfig, srcs: Parts,
     clear_fused_cache() frees them. On CPU tensors the same route runs
     eagerly on the kernels' twins, with no graph.
 
-    pair_fetch 'pregather' and 'static' raise NotImplementedError (their
-    plan waits on the host; ROADMAP.md Queue 1 item 7)."""
+    Every pair_fetch runs: the dma family's kernels read the run count
+    from device memory, 'pregather' and 'static' plan each gather chunk
+    on the card and read its segment counts there
+    (cuda_pairs.exec_pairs_capped)."""
     if srcs.x.device.type != "cuda":
         res, info, word, checks = fused_eager(kernel, cfg, srcs, targs,
                                               unscramble)

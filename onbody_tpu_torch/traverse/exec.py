@@ -20,7 +20,8 @@ per segment), and refuses a paired list, as the reference does.
 
 The eager path trims each grouped list to its real steps (one read of
 the count); the fused solve's route (`checks`) keeps the static
-capacity, as the reference does inside jit (exec.py:237-246, 266-275).
+capacity, as the reference does inside jit (exec.py:237-246, 266-275),
+and plans every kernel launch on the card.
 
 cfg.accum_dtype float64 (the accuracy tier) runs every fetch through
 K1-f64 on the double source rows the plan holds, tgt_geo promoted, into
@@ -84,9 +85,9 @@ def exec_pairs(kernel: Kernel, cfg, plan, raw: PairList, slot_width: int,
     raw's combined n_valid (lists.build_dtt_pairs_level2) and the summed
     overflow.
 
-    checks (the fused solve's route, dma-family fetches): the groups keep
-    their static capacity (no trim, so info holds the cap-sized arrays,
-    as the reference's jitted program keeps them) and run through
+    checks (the fused solve's route, every fetch): the groups keep their
+    static capacity (no trim, so info holds the cap-sized arrays, as the
+    reference's jitted program keeps them) and run through
     cuda_pairs.exec_pairs_capped (the kernels on CUDA tensors, whatever
     pair_backend says; solve_dtt_fused refuses 'torch' there), whose id
     checks land in `checks` on the device instead of raising; nothing

@@ -1,5 +1,5 @@
 """Interaction lists as dense, fixed-width frontier expansions (port of
-the treecode traversal and the DTT level traversal of
+the treecode traversal and the DTT level and refine traversals of
 onbody_tpu/traverse/lists.py).
 
 Every target node keeps a row of `frontier_width` candidate source
@@ -412,6 +412,115 @@ def _dtt_lists_level(stree: Tree, ttree: Tree, theta: float,
     if leaf_pair2:
         return tgt, src, p2[0], p2[1], total_valid, overflow
     return tgt, src, total_valid, overflow
+
+
+def _dtt_lists_refine(stree: Tree, ttree: Tree, theta: float,
+                      frontier_width: int, list_width: int,
+                      src_parts: int = 1, tgt_parts: int = 1):
+    """The refine-the-larger dual-tree traversal (reference _dtt_lists,
+    ongrav3d.cpp:307-402): for each target level, an inner loop expands
+    the non-separated sources the target is not bigger than, and defers
+    the rest (source leaves, bigger targets) to the target's children.
+    The MAC is the reference's classify: exact CMs and radii, dist /
+    (snr + tnr) > theta.
+
+    The reference's inner while_loop stops once no source expands, or
+    after levels_s + 2 rounds, then flushes the last round's accepts and
+    defers. Here the loop runs levels_s + 2 rounds always, with no host
+    read: once no source expands, a round appends exactly what the flush
+    would, in the same order, and leaves no candidate, so the rounds
+    after it and the flush append nothing and the lists are the
+    reference's id for id. As there, expands left at the round bound are
+    dropped without counting as overflow. Returns (tgt, src, n_valid,
+    overflow): every target row's list_width slots, level by level, each
+    interior level's rows followed by its extension rows' copies."""
+    levels_s, levels_t = stree.levels, ttree.levels
+    nleaf_s, nleaf_t = 1 << levels_s, 1 << levels_t
+    W, K = frontier_width, list_width
+    dev = ttree.x.device
+    pd = stree.nc.shape[1]
+    th = torch.full((), theta, dtype=stree.nc.dtype, device=dev)
+    all_tgt: List[torch.Tensor] = []
+    all_src: List[torch.Tensor] = []
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    total_valid, overflow = zero, zero
+    cand = torch.zeros((1, W), dtype=torch.int64, device=dev)
+    cand[0, 0].fill_(1)     # root vs root (a fill: no copy from the host)
+    for l in range(levels_t + 1):
+        nt = 1 << l
+        tgt_ids = torch.arange(nt, 2 * nt, dtype=torch.int64, device=dev)
+        t_is_leaf = l == levels_t
+        tnr = ttree.nr[nt:2 * nt]
+        tcm = ttree.x[nt:2 * nt]
+        cand = torch.where(ttree.alive[nt:2 * nt][:, None], cand, 0)
+
+        def classify(cand):
+            valid = cand != 0
+            s_is_leaf = cand >= nleaf_s
+            snr = stree.nr[cand]
+            d2 = None
+            for d in range(pd):
+                diff = stree.x[:, d][cand] - tcm[:, None, d]
+                d2 = diff * diff if d2 is None else d2 + diff * diff
+            sep = torch.sqrt(d2) / (snr + tnr[:, None]) > th
+            accept = valid & ((s_is_leaf & t_is_leaf) | sep)
+            if t_is_leaf:
+                # the target cannot refine: expand interior sources
+                return accept, valid & ~accept & ~s_is_leaf, \
+                    torch.zeros_like(valid)
+            bigger = tnr[:, None] > snr
+            return (accept, valid & ~accept & ~s_is_leaf & ~bigger,
+                    valid & ~accept & (s_is_leaf | bigger))
+
+        out = cand.new_zeros((nt, K + 1))
+        out_cnt = cand.new_zeros((nt,))
+        defer_out = cand.new_zeros((nt, W + 1))
+        defer_cnt = cand.new_zeros((nt,))
+        accept, expand, defer = classify(cand)
+        for _ in range(levels_s + 2):
+            out, out_cnt, ov1 = _append_rows(
+                out, out_cnt, _ext_src(torch.where(accept, cand, 0),
+                                       nleaf_s, src_parts))
+            defer_out, defer_cnt, ov2 = _append_rows(
+                defer_out, defer_cnt, torch.where(defer, cand, 0))
+            kids = torch.cat([torch.where(expand, 2 * cand, 0),
+                              torch.where(expand, 2 * cand + 1, 0)], dim=1)
+            cand, ov3 = _compact_rows(kids, W)
+            overflow = overflow + ov1 + ov2 + ov3
+            accept, expand, defer = classify(cand)
+        # the flush: what the last round left (nothing, unless it hit the
+        # round bound)
+        out, out_cnt, ov1 = _append_rows(
+            out, out_cnt, _ext_src(torch.where(accept, cand, 0), nleaf_s,
+                                   src_parts))
+        defer_out, defer_cnt, ov2 = _append_rows(
+            defer_out, defer_cnt, torch.where(defer, cand, 0))
+        overflow = overflow + ov1 + ov2
+        rows = tgt_ids[:, None].expand(nt, K).reshape(-1)
+        all_tgt.append(rows)
+        all_src.append(out[:, :K].reshape(-1))
+        total_valid = total_valid + out_cnt.sum()
+        if tgt_parts > 1 and not t_is_leaf:
+            for j in range(1, tgt_parts):
+                all_tgt.append(rows + (j + 1) * nleaf_t)
+                all_src.append(out[:, :K].reshape(-1))
+                total_valid = total_valid + out_cnt.sum()
+        if not t_is_leaf:
+            # children inherit the deferred list (ongrav3d.cpp:418-422)
+            cand = torch.repeat_interleave(defer_out[:, :W], 2, dim=0)
+    return torch.cat(all_tgt), torch.cat(all_src), total_valid, overflow
+
+
+def build_dtt_pairs(stree: Tree, ttree: Tree, theta: float,
+                    frontier_width: int = 256, list_width: int = 256,
+                    src_parts: int = 1, tgt_parts: int = 1) -> PairList:
+    """The refine-the-larger DTT pair list (dtt_traversal 'refine',
+    reference build_dtt_pairs); slot width list_width; src_parts /
+    tgt_parts the rows a source's / target's proxy grid spans."""
+    tgt, src, nv, ov = _dtt_lists_refine(stree, ttree, theta,
+                                         frontier_width, list_width,
+                                         src_parts, tgt_parts)
+    return PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
 
 
 def _dtt_lists_top(stree: Tree, ttree: Tree, theta: float, levels_s: int,

@@ -13,6 +13,7 @@ import contextlib
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from onbody_tpu_torch import parts as TP
 
@@ -129,3 +130,42 @@ def jax_x64():
         yield
     finally:
         jax.config.update("jax_enable_x64", prev)
+
+
+# ops that read the device back (or size their output from its data), and
+# lift_fresh, a tensor made from host values (on the card: a copy to it)
+SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.unique",
+            "aten._unique", "aten.unique_consecutive", "aten.masked_select",
+            "aten.lift_fresh")
+
+
+class SyncGuard(TorchDispatchMode):
+    """Records every op that would wait on the host: SYNC_OPS and
+    boolean-mask indexing (index / index_put with a bool index), except
+    while `exempt` is set."""
+
+    def __init__(self):
+        super().__init__()
+        self.hits, self.exempt = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        bad = name.startswith(SYNC_OPS)
+        if name in ("aten.index", "aten.index_put", "aten.index_put_",
+                    "aten._index_put_impl_"):
+            bad = any(i is not None and i.dtype == torch.bool
+                      for i in args[1])
+        if bad and not self.exempt:
+            self.hits.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+def exempt(guard, fn):
+    """fn with `guard` not recording while it runs (a kernel's twin)."""
+    def run(*a, **k):
+        guard.exempt += 1
+        try:
+            return fn(*a, **k)
+        finally:
+            guard.exempt -= 1
+    return run

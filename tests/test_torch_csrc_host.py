@@ -65,7 +65,8 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1);
+static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1),
+    gridDim(1, 1, 1);
 struct float4 {
   float x, y, z, w;
 };
@@ -101,6 +102,7 @@ template <class... A> struct HostLaunch {
   void (*k)(A...);
   unsigned gx, gy;
   void operator()(A... a) const {
+    gridDim = dim3(gx, gy, 1);
     for (unsigned y = 0; y < gy; ++y)
       for (unsigned x = 0; x < gx; ++x) {
         blockIdx = dim3(x, y, 0);
@@ -454,14 +456,49 @@ def _launch_plan(lib, plan, tgt_geo, src_gathered, out, group):
         partials.data_ptr(), plan.run_tgt.data_ptr(),
         plan.run_seg.data_ptr(), plan.seg_run.data_ptr(),
         plan.seg_off.data_ptr(), plan.steps.data_ptr(),
-        None if plan.n_slots is None else plan.n_slots.data_ptr(), n_seg,
-        b, gc // group, group, out.shape[1], None)
+        None if plan.n_slots is None else plan.n_slots.data_ptr(), None,
+        n_seg, b, gc // group, group, out.shape[1], None)
     if rc or plan.split_runs.numel() == 0:
         return rc
     return _entry(lib, "exec_pre_reduce", plan.kernel.name, plan.core)(
         out.data_ptr(), partials.data_ptr(), plan.run_tgt.data_ptr(),
-        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(),
+        plan.run_seg.data_ptr(), plan.split_runs.data_ptr(), None,
         plan.split_runs.numel(), rows, b, out.shape[1], None)
+
+
+def _run_pre_capped(lib, kind, kernel, core, tgt_geo, src_gathered, gt, gs,
+                    out, group, seg_steps):
+    """K8 ("exec_pre"), K9 ("exec_pre_t2") or K12 ("exec_static") on one
+    gathered chunk as the fused solve launches them: the chunk at its
+    capacity, its run table and segment plan from capped_runs and
+    capped_segments, the segment kernel over a CTA per step slot and the
+    reduction over a row per four, which walk the split runs, both
+    reading their counts from memory. Partial rows start as NaN."""
+    paired = kind == "exec_pre_t2"
+    launched = kind if kind == "exec_static" else kind + "_seg"
+    runs = cuda_pairs.capped_runs(gt, gs, tgt_geo.shape[0] // (1 + paired),
+                                  1 << 20)
+    assert int(runs.bad) == 0
+    segs = cuda_pairs.capped_segments(runs, seg_steps)
+    cap, (_, gc, b) = gt.shape[0], src_gathered.shape
+    rows = 2 if paired else 1
+    partials = torch.full((cap, rows, kernel.od, b), float("nan"))
+    slots = cuda_pairs.n_real_slots(gs).int()
+    steps = torch.arange(cap, dtype=torch.int32)
+    rc = _entry(lib, launched, kernel.name, core)(
+        tgt_geo.data_ptr(), src_gathered.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), runs.run_tgt.data_ptr(),
+        segs.run_seg.data_ptr(), segs.seg_run.data_ptr(),
+        segs.seg_off.data_ptr(), steps.data_ptr(), slots.data_ptr(),
+        segs.n_seg.data_ptr(), cap, b, gc // group, group, out.shape[1],
+        None)
+    if rc:
+        return rc
+    return _entry(lib, "exec_pre_reduce", kernel.name, core)(
+        out.data_ptr(), partials.data_ptr(), runs.run_tgt.data_ptr(),
+        segs.run_seg.data_ptr(), segs.split_runs.data_ptr(),
+        segs.n_split.data_ptr(), max(1, cap // 4), rows, b, out.shape[1],
+        None)
 
 
 @pytest.mark.parametrize("pad8", [False, True], ids=["lean", "pad8"])
@@ -826,6 +863,51 @@ def test_host_k12_matches_twin(host_lib, name, core, case):
     assert not out[:, kernel.od:].any()
 
 
+# keys with runs of 1-7 steps, a pad tail of 11 step slots; 14 runs of 2
+# steps (more split runs than the reduction's 8 grid rows: rows walk)
+CAPPED_PRE_KEYS = [3] * 7 + [1, 6, 6] + [2] * 5 + [7] * 3 + [0] * 11
+CAPPED_PAIRS_KEYS = [k for k in range(1, 15) for _ in (0, 1)] + [0] * 4
+# (kind, S, keys): K8 at 2 and 3 steps a segment, K9 at 2, K12 (one step
+# a segment)
+CAPPED_PRE = {"k8-s2": ("exec_pre", 2, CAPPED_PRE_KEYS),
+              "k8-s3": ("exec_pre", 3, CAPPED_PRE_KEYS),
+              "k9-s2": ("exec_pre_t2", 2, CAPPED_PRE_KEYS),
+              "k12": ("exec_static", 1, CAPPED_PRE_KEYS),
+              "k12-walk": ("exec_static", 1, CAPPED_PAIRS_KEYS)}
+
+
+@pytest.mark.parametrize("case", list(CAPPED_PRE))
+@pytest.mark.parametrize("name,core", INSTANCES[:2] + INSTANCES[-2:],
+                         ids=IDS[:2] + IDS[-2:])
+def test_host_capped_pre_equals_trimmed(host_lib, name, core, case):
+    """K8, K9 and K12 with the reduction as the fused solve launches them
+    (the plan made by capped_segments, the counts read from memory, the
+    segment grid at the chunk's capacity, the reduction's rows walking
+    the split runs) give the eager launches' bits on the trimmed plan
+    (CTAs past the counts touch nothing, NaN partials included)."""
+    kind, s, keys = CAPPED_PRE[case]
+    kernel = get_kernel(name)
+    group = 8
+    src_fm, tgt_geo = _blocks(kernel, b=32, seed=16)
+    gt, gs = _groups(keys, seed=17)
+    slots = cuda_pairs.n_real_slots(gs)
+    gathered = cuda_pairs._pregather(name, src_fm, gs, 32, pad8=False)
+    out0 = torch.zeros((16, cuda_pairs.od8(kernel), 32))
+    out0[1] = 7.25
+    trimmed, capped = out0.clone(), out0.clone()
+    steps, run_tgt, run_off = cuda_pairs._run_table(gt)
+    plan = cuda_pairs._seg_plan(
+        "exec_static" if kind == "exec_static" else kind + "_seg", kernel,
+        core, steps, run_tgt, run_off, slots, s, gt.device)
+    assert plan.split_runs.numel() > 0
+    assert _launch_plan(host_lib, plan, tgt_geo, gathered, trimmed,
+                        group) == 0
+    assert _run_pre_capped(host_lib, kind, kernel, core, tgt_geo, gathered,
+                           gt, gs, capped, group, s) == 0
+    assert torch.equal(capped, trimmed)
+    assert torch.isfinite(capped).all()
+
+
 # runs of 1, 3, 9, 12, 1, 17, 18 and 37 segments: the 4-load groups with
 # and without a tail, single segments before, between and after them
 REDUCE_SEGS = [1, 3, 9, 12, 1, 17, 18, 1, 37]
@@ -854,8 +936,8 @@ def test_host_reduction_matches_twin(host_lib, name, core, rows, b):
     split = torch.nonzero(~single).squeeze(1).int()
     assert _entry(host_lib, "exec_pre_reduce", name, core)(
         out.data_ptr(), partials.data_ptr(), run_tgt.data_ptr(),
-        run_seg.data_ptr(), split.data_ptr(), split.numel(), rows, b, od8,
-        None) == 0
+        run_seg.data_ptr(), split.data_ptr(), None, split.numel(), rows, b,
+        od8, None) == 0
     cuda_pairs.reduce_segments_torch(twin, partials, run_tgt, run_seg,
                                      paired=rows == 2)
     assert torch.equal(out, twin)

@@ -800,6 +800,68 @@ def test_capped_kernels_equal_trimmed(dev, name, core, kind):
     assert torch.equal(capped, trimmed)
 
 
+# the fetch of each kernel on pre-gathered sources at static capacity
+CAPPED_PRE = {"exec_pre": "pregather", "exec_pre_t2": "pregather",
+              "exec_static": "static"}
+
+
+def _two_chunk_list(dev, paired: bool, seed=63):
+    """A list whose real steps span two pregather chunks at B 128 / G 8
+    (8192 steps a chunk): runs of 1-40 steps of distinct keys, one cut by
+    the chunk boundary, then pad steps up to 12000 step slots; the
+    trimmed list and the list at its capacity."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, 41, (440,), generator=g)
+    keys = torch.randperm(440, generator=g) + 1
+    gt = torch.repeat_interleave(keys, lens)[:9000]
+    assert gt[8191] == gt[8192]
+    gs = torch.randint(1, 16, (gt.shape[0], 8), generator=g)
+    gs[torch.rand(gs.shape, generator=g) < 0.25] = 0
+    cap_t = torch.cat([gt, gt.new_zeros(3000)])
+    cap_s = torch.cat([gs, gs.new_zeros((3000, 8))])
+    nn = 2 * 441 + 2 if paired else 441
+    return nn, (gt.to(dev), gs.to(dev)), (cap_t.to(dev), cap_s.to(dev))
+
+
+@pytest.mark.parametrize("kind", list(CAPPED_PRE))
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_capped_pre_kernels_equal_trimmed(dev, name, core, kind):
+    """K8, K9 and K12 with their reduction at static capacity (each gather
+    chunk's plan made on the card by capped_segments, the segment and
+    split-run counts read from device memory, the segment grid at the
+    chunk's capacity), on a list whose runs cross a chunk boundary: the
+    eager front door's output on the trimmed list bit for bit, one
+    segment launch and one reduction per chunk, no error."""
+    kernel = get_kernel(name)
+    paired = kind == "exec_pre_t2"
+    nn, (gt, gs), (cgt, cgs) = _two_chunk_list(dev, paired)
+    src_fm, tgt_geo = _blocks(dev, kernel, nn=nn)
+    fetch = CAPPED_PRE[kind]
+    out0 = torch.zeros((nn, cuda_pairs.od8(kernel), B), device=dev)
+    out0[1] = 7.25
+    trimmed = out0.clone()
+    if paired:
+        cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs, trimmed,
+                                 core, fetch=fetch)
+    else:
+        cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core,
+                              fetch=fetch, out_fm=trimmed, final=False)
+    inst = cuda_lib.instance(name, core)
+    seg = kind if kind == "exec_static" else kind + "_seg"
+    before = [cuda_pairs.LAUNCHES[(k, inst)]
+              for k in (seg, "exec_pre_reduce")]
+    checks = cuda_pairs.RunChecks()
+    capped = cuda_pairs.exec_pairs_capped(kernel, tgt_geo, src_fm, cgt, cgs,
+                                          checks, core, fetch, out0.clone(),
+                                          paired=paired)
+    torch.cuda.synchronize()
+    assert [cuda_pairs.LAUNCHES[(k, inst)] - n for k, n in zip(
+        (seg, "exec_pre_reduce"), before)] == [2, 2]
+    assert checks.word(dev).tolist() == [0, 0]
+    assert torch.equal(capped, trimmed)
+    assert bool((capped[1] == 7.25).all()) or not paired
+
+
 def _fused_problem(dev, name="grav3d", n=3000, seed=61):
     kernel = get_kernel(name)
     sx, sr, ss, tx, tr = kernel_inputs(kernel, seed, n)
@@ -807,8 +869,17 @@ def _fused_problem(dev, name="grav3d", n=3000, seed=61):
             _to(torch_parts(tx, tr), dev))
 
 
+# the fused solve's keys by fetch: the slice's (dma_i), pregather (K8 +
+# K9), static (K12, no paired list)
+FUSED_KW = {"dma_i": SLICE_KW,
+            "pregather": dict(SLICE_KW, pair_fetch="pregather"),
+            "static": dict(SLICE_KW, pair_fetch="static",
+                           dtt_leaf_pair2=False)}
+
+
+@pytest.mark.parametrize("fetch", list(FUSED_KW))
 @pytest.mark.parametrize("name", WORKLOADS)
-def test_fused_graph_equals_split(dev, name):
+def test_fused_graph_equals_split(dev, name, fetch):
     """solve_dtt_fused on the card: one CUDA graph, captured after a
     warm-up under sync debug mode "error"; its output bit for bit
     prepare + solve_dtt's, in both forms; a replay on new inputs bit for
@@ -816,7 +887,7 @@ def test_fused_graph_equals_split(dev, name):
     second."""
     dtt.clear_fused_cache()
     kernel, srcs, targs = _fused_problem(dev, name)
-    cfg = SolverConfig(**SLICE_KW)
+    cfg = SolverConfig(**FUSED_KW[fetch])
     out, info = dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
     graph = dtt.fused_graph(kernel, cfg, srcs, targs)
     assert isinstance(graph.graph, torch.cuda.CUDAGraph)
@@ -840,14 +911,15 @@ def test_fused_graph_equals_split(dev, name):
     dtt.clear_fused_cache()
 
 
-def test_fused_graph_raises_after_replay(dev, monkeypatch):
+@pytest.mark.parametrize("fetch", list(FUSED_KW))
+def test_fused_graph_raises_after_replay(dev, monkeypatch, fetch):
     """A list corrupted inside the captured route (a target key out of
     range) launches no work and raises the eager text after each
     replay."""
     from onbody_tpu_torch.traverse import exec as pexec, lists
     dtt.clear_fused_cache()
     kernel, srcs, targs = _fused_problem(dev, n=2000)
-    cfg = SolverConfig(**SLICE_KW)
+    cfg = SolverConfig(**FUSED_KW[fetch])
 
     def corrupted(pl, cap, group, slot_width):
         pg = lists.group_pairs(pl, cap, group, slot_width)

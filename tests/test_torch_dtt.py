@@ -111,7 +111,6 @@ def test_slice_stats_and_launch_counts_on_cpu(slice_run):
 @pytest.mark.parametrize("key,value,item", [
     ("tree_mode", "morton", "item 17"),
     ("tree_mode", "bisect", "item 17"), ("tree_quant", "gather", "item 17"),
-    ("dtt_traversal", "refine", "item 11"),
     ("dtt_lists", "flat", "item 17")])
 def test_unported_config_raises(key, value, item):
     cfg = SolverConfig(**SLICE_KW).replace(**{key: value})

@@ -7,14 +7,15 @@ kernels' twins. The card's side (the CUDA graph, the kernels at static
 capacity) is in test_torch_cuda.py.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
-from _torch_parity import (SLICE_KW, jax_parts, kernel_inputs, rel_rms,
-                           torch_parts)
+from _torch_parity import (SLICE_KW, SyncGuard, exempt, jax_parts,
+                           kernel_inputs, rel_rms, torch_parts)
 from onbody_tpu.config import SolverConfig as JConfig
 from onbody_tpu.ops.kernels import get_kernel as jget_kernel
 from onbody_tpu.traverse import dtt as jdtt
@@ -38,12 +39,11 @@ def _problem(name: str, n: int = N, seed: int = 5):
         torch_parts(tx, tr)
 
 
-def test_fused_matches_reference_fused():
-    """The same numpy inputs through the reference's solve_dtt_fused (its
-    xla executor, as tests/test_traverse.py:421 runs it) and the port's,
-    in both unscramble forms: outputs within rel-RMS 1e-5, the cap-sized
-    interior groups, n_valid, overflow and tgt_inv exactly; the
-    tree-order output through tgt_inv is the unscrambled one."""
+@functools.lru_cache(maxsize=None)
+def _reference_fused():
+    """The reference's solve_dtt_fused (its xla executor, as
+    tests/test_traverse.py:421 runs it) on one problem, in both unscramble
+    forms, compiled once for every fetch the port runs against it."""
     jax.clear_caches()
     kernel, arrs, srcs, targs = _problem("grav3d", 1000, seed=3)
     sx, sr, ss, tx, tr = arrs
@@ -53,31 +53,49 @@ def test_fused_matches_reference_fused():
     ref, rinfo = jdtt.solve_dtt_fused(jk, jcfg, js, jt)
     (rtree, rinv), _ = jdtt.solve_dtt_fused(jk, jcfg, js, jt,
                                             unscramble=False)
-    cfg = SolverConfig(**UNPAIRED)
+    return (kernel, srcs, targs, np.asarray(ref), rinfo, np.asarray(rtree),
+            np.asarray(rinv))
+
+
+@pytest.mark.parametrize("fetch", ["dma_i", "pregather", "static"])
+def test_fused_matches_reference_fused(fetch):
+    """The same numpy inputs through the reference's solve_dtt_fused and
+    the port's at `fetch`, in both unscramble forms: outputs within
+    rel-RMS 1e-5, the cap-sized interior groups, n_valid, overflow and
+    tgt_inv exactly; the tree-order output through tgt_inv is the
+    unscrambled one."""
+    kernel, srcs, targs, ref, rinfo, rtree, rinv = _reference_fused()
+    cfg = SolverConfig(**dict(UNPAIRED, pair_fetch=fetch))
     out, info = dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
     (tree, inv), info2 = dtt.solve_dtt_fused(kernel, cfg, srcs, targs,
                                              unscramble=False)
-    assert rel_rms(out.numpy(), np.asarray(ref)) <= 1e-5
+    assert rel_rms(out.numpy(), ref) <= 1e-5
     # real slots only: the pad slots' outputs are discarded
-    assert rel_rms(tree[inv].numpy(),
-                   np.asarray(rtree)[np.asarray(rinv)]) <= 1e-5
+    assert rel_rms(tree[inv].numpy(), rtree[rinv]) <= 1e-5
     for got in (info, info2):
         assert got.tgt.shape == rinfo.tgt.shape
         np.testing.assert_array_equal(got.tgt.numpy(), np.asarray(rinfo.tgt))
         np.testing.assert_array_equal(got.src.numpy(), np.asarray(rinfo.src))
         assert int(got.n_valid) == int(rinfo.n_valid)
         assert int(got.overflow) == int(rinfo.overflow) == 0
-    np.testing.assert_array_equal(inv.numpy(), np.asarray(rinv))
+    np.testing.assert_array_equal(inv.numpy(), rinv)
     assert torch.equal(tree[inv], out)
 
 
 # the four workloads on the slice's keys (dma_i, paired leaves), grav3d at
-# order -1 (pair-merge, _downward_copy) and under dma_p on idsort lists
+# order -1 (pair-merge, _downward_copy) and under dma_p on idsort lists;
+# pregather (K8 + K9) and static (K12, no paired list) for grav3d and
+# vort2d
+STATIC = dict(pair_fetch="static", dtt_leaf_pair2=False)
 FUSED_CASES = {"grav3d": ("grav3d", {}), "vort3d": ("vort3d", {}),
                "vortgrad3d": ("vortgrad3d", {}), "vort2d": ("vort2d", {}),
                "grav3d-order-1": ("grav3d", dict(order=-1)),
                "grav3d-dma_p": ("grav3d", dict(pair_fetch="dma_p",
-                                                list_compact="idsort"))}
+                                                list_compact="idsort")),
+               "grav3d-pregather": ("grav3d", dict(pair_fetch="pregather")),
+               "grav3d-static": ("grav3d", STATIC),
+               "vort2d-pregather": ("vort2d", dict(pair_fetch="pregather")),
+               "vort2d-static": ("vort2d", STATIC)}
 
 
 @pytest.mark.parametrize("case", list(FUSED_CASES))
@@ -218,55 +236,20 @@ def test_fused_raises_eager_texts(monkeypatch, corrupt, text):
         dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
 
 
-# ops that read the device back (or size their output from its data), and
-# lift_fresh, a tensor made from host values (on the card: a copy to it)
-SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.unique",
-            "aten._unique", "aten.unique_consecutive", "aten.masked_select",
-            "aten.lift_fresh")
-
-
-class SyncGuard(TorchDispatchMode):
-    """Records every op that would wait on the host: SYNC_OPS and
-    boolean-mask indexing (index / index_put with a bool index), except
-    while `exempt` is set."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits, self.exempt = [], 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func.overloadpacket)
-        bad = name.startswith(SYNC_OPS)
-        if name in ("aten.index", "aten.index_put", "aten.index_put_",
-                    "aten._index_put_impl_"):
-            bad = any(i is not None and i.dtype == torch.bool
-                      for i in args[1])
-        if bad and not self.exempt:
-            self.hits.append(name)
-        return func(*args, **(kwargs or {}))
-
-
-def _exempt(guard, fn):
-    def run(*a, **k):
-        guard.exempt += 1
-        try:
-            return fn(*a, **k)
-        finally:
-            guard.exempt -= 1
-    return run
-
-
-@pytest.mark.parametrize("name,kw", [("grav3d", {}),
-                                     ("vort2d", dict(order=-1))])
+@pytest.mark.parametrize("name,kw", [
+    ("grav3d", {}), ("vort2d", dict(order=-1)),
+    ("grav3d", dict(pair_fetch="pregather")), ("vort2d", STATIC)])
 def test_fused_route_never_waits(monkeypatch, name, kw):
     """Outside the kernels' twins (which stand in for CUDA kernels on the
-    CPU) the fused route reaches no op that reads the device back; the
-    same guard catches the split path's waits (exec._trim's count)."""
+    CPU) the fused route reaches no op that reads the device back, at a
+    dma-family fetch, pregather and static; the same guard catches the
+    split path's waits (exec._trim's count)."""
     kernel, _, srcs, targs = _problem(name, 900)
     cfg = SolverConfig(**dict(SLICE_KW, **kw))
     guard = SyncGuard()
-    for twin in ("exec_pairs_torch", "exec_pairs_torch_t2"):
-        monkeypatch.setattr(pp, twin, _exempt(guard, getattr(pp, twin)))
+    for twin in ("exec_pairs_torch", "exec_pairs_torch_t2",
+                 "exec_pairs_pre_torch", "exec_pairs_pre_torch_t2"):
+        monkeypatch.setattr(pp, twin, exempt(guard, getattr(pp, twin)))
     with guard:
         dtt.fused_eager(kernel, cfg, srcs, targs)
     assert guard.hits == []
@@ -274,11 +257,3 @@ def test_fused_route_never_waits(monkeypatch, name, kw):
         dtt.solve_dtt(kernel, cfg, treecode.prepare(kernel, cfg, srcs,
                                                     targs))
     assert "aten._local_scalar_dense" in guard.hits
-
-
-@pytest.mark.parametrize("fetch", ["pregather", "static"])
-def test_fused_refuses_pregather_and_static(fetch):
-    kernel, _, srcs, targs = _problem("grav3d", 300)
-    cfg = SolverConfig(**dict(SLICE_KW, pair_fetch=fetch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dtt.solve_dtt_fused(kernel, cfg, srcs, targs)
