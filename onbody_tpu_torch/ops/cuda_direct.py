@@ -34,8 +34,11 @@ from onbody_tpu_torch.ops.kernels import Kernel, featurize
 # forms "direct64" and "direct64_reduce", and the instance as
 # cuda_lib.instance names it (reset by callers that count a run)
 LAUNCHES = collections.Counter()
-# the twin's (targets, sources) tile: bounds its (T, S) temporaries
+# the twin's (targets, sources) tile: bounds its (T, S) temporaries; on
+# the CPU 64 targets a tile keep them in cache (~3x faster than 1024; the
+# target tiling does not change the result, the source tiling would)
 _TILE_T, _TILE_S = 1024, 4096
+_TILE_T_CPU = 64
 # csrc/direct.cuh's targets per CTA (kDirectThreads * kDirectTgts) and
 # sources per staged chunk (kDirectChunk)
 TILE_T, CHUNK_S = 512, 512
@@ -68,12 +71,13 @@ def direct_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
                                                           ss))
     srcT = featurize(kernel.name, sx, sr, ss, pad8=False)
     out = tx.new_zeros((tx.shape[0], kernel.od))
-    for t0 in range(0, tx.shape[0], _TILE_T):
-        t, r = tx[t0:t0 + _TILE_T], tr[t0:t0 + _TILE_T]
-        acc = torch.zeros_like(out[t0:t0 + _TILE_T])
+    tile_t = _TILE_T if tx.device.type == "cuda" else _TILE_T_CPU
+    for t0 in range(0, tx.shape[0], tile_t):
+        t, r = tx[t0:t0 + tile_t], tr[t0:t0 + tile_t]
+        acc = torch.zeros_like(out[t0:t0 + tile_t])
         for s0 in range(0, sx.shape[0], _TILE_S):
             acc += kernel.tile_fm(t, r, srcT[:, s0:s0 + _TILE_S], core)
-        out[t0:t0 + _TILE_T] = acc
+        out[t0:t0 + tile_t] = acc
     return out
 
 

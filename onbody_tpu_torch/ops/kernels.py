@@ -139,6 +139,16 @@ def featurize(name: str, pos, rad, s, pad8: bool = True):
     return out
 
 
+def featurize_flat(name: str, pos, rad, s):
+    """The lean feature rows of blocks (reference featurize_flat): grav3d
+    x, y, z, sr^2, m; the vortex bodies x(pd), sr, s(sd). The reference
+    flattens each block to one (C*B,) vector because (NN, C, B) with C 5
+    tiles badly on the TPU; the port keeps (..., C, B), the layout K8/K9
+    read at any row stride, so reshape(-1) of a block is the reference's
+    vector."""
+    return featurize(name, pos, rad, s, pad8=False)
+
+
 def pad_fm_rows(name: str, blocks):
     """Pad lean (..., C, B) blocks to a multiple of 8 rows with the
     DERIVED rows of the padded layout (grav3d m*pos, vort2d ss*pos),
@@ -173,12 +183,20 @@ def _grav3d_tile_fm(tpos, srcT):
 
     Reads rows x, y, z, sr^2, m of either layout (pad8 or lean) and
     evaluates w = m * rsqrt(|d|^2 + sr^2)^3, out = sum w * d with
-    d = s - t per pair — the arithmetic of the CUDA body."""
+    d = s - t per pair — the arithmetic of the CUDA body. The
+    temporaries are reused in place (the same operations in the same
+    order: ((d0^2 + d1^2) + d2^2) + sr^2, ((rinv rinv) rinv) m)."""
     d = [srcT[..., k:k + 1, :] - tpos[..., :, k:k + 1] for k in range(3)]
-    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    rinv = torch.rsqrt(d2 + srcT[..., 3:4, :])
-    w = srcT[..., 4:5, :] * (rinv * rinv * rinv)
-    return torch.stack([(w * dk).sum(-1) for dk in d], dim=-1)
+    d2 = d[0] * d[0]
+    t = d[1] * d[1]
+    d2 += t
+    torch.mul(d[2], d[2], out=t)
+    d2 += t
+    d2 += srcT[..., 3:4, :]
+    rinv = d2.rsqrt_()
+    w = torch.mul(rinv, rinv, out=t).mul_(rinv).mul_(srcT[..., 4:5, :])
+    return torch.stack([torch.mul(w, dk, out=dk).sum(-1) for dk in d],
+                       dim=-1)
 
 
 def _vort2d_tile_fm(tpos, trad, srcT, core="rm"):

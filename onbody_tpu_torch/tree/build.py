@@ -62,6 +62,53 @@ class Tree:
         return slice(1 << l, 1 << (l + 1))
 
 
+TREE_FIELDS = ("nc", "ns", "nr", "x", "s", "pr", "alive")
+
+
+def merge_top_levels(arr, w_roots: torch.Tensor, split: int) -> None:
+    """finishTree's interior merge (barneshut.hpp:733-746) for the levels
+    < split of a global tree whose levels >= split hold the 2^split
+    subtrees (the capacity tiers' assembly), in place. arr maps
+    TREE_FIELDS to (NN, ...) tensors; w_roots (2^split,) the subtree
+    roots' weights, in the type the merge computes in. A parent's box is
+    the union of its alive children's: a dead child sits at the far
+    point with a zero box, which must not widen it."""
+    ndev = 1 << split
+    w = w_roots
+    cm = arr["x"][ndev:2 * ndev]
+    s = arr["s"][ndev:2 * ndev]
+    pr = arr["pr"][ndev:2 * ndev]
+    al = arr["alive"][ndev:2 * ndev]
+    lo = arr["nc"][ndev:2 * ndev] - 0.5 * arr["ns"][ndev:2 * ndev]
+    hi = arr["nc"][ndev:2 * ndev] + 0.5 * arr["ns"][ndev:2 * ndev]
+    for l in range(split - 1, -1, -1):
+        w0, w1 = w[0::2], w[1::2]
+        wp = w0 + w1
+        safe = 1e-20 + wp
+        any_w = wp > 1e-12
+        cm = torch.where(any_w[:, None],
+                         (cm[0::2] * w0[:, None] + cm[1::2] * w1[:, None])
+                         / safe[:, None], 0.5 * (cm[0::2] + cm[1::2]))
+        pr = torch.where(any_w, (pr[0::2] * w0 + pr[1::2] * w1) / safe,
+                         0.5 * (pr[0::2] + pr[1::2]))
+        s = s[0::2] + s[1::2]
+        a0, a1 = al[0::2, None], al[1::2, None]
+        lo = torch.where(a0 & a1, torch.minimum(lo[0::2], lo[1::2]),
+                         torch.where(a0, lo[0::2], lo[1::2]))
+        hi = torch.where(a0 & a1, torch.maximum(hi[0::2], hi[1::2]),
+                         torch.where(a0, hi[0::2], hi[1::2]))
+        al = al[0::2] | al[1::2]
+        w = wp
+        sl = slice(1 << l, 2 << l)
+        arr["x"][sl] = cm
+        arr["s"][sl] = s
+        arr["pr"][sl] = pr
+        arr["nc"][sl] = 0.5 * (lo + hi)
+        arr["ns"][sl] = hi - lo
+        arr["nr"][sl] = 0.5 * torch.sqrt(((hi - lo) ** 2).sum(1))
+        arr["alive"][sl] = al
+
+
 def plan(n: int, block_size: int) -> Tuple[int, int]:
     """(levels, n_pad): power-of-two leaves of exactly block_size."""
     nleaf = next_pow2(max(1, -(-n // block_size)))
@@ -226,7 +273,8 @@ def _upward_stats(x, r, s, mask, levels: int, block_size: int, sd: int,
 
 def build_tree(p: Parts, block_size: int = 128, refine: bool = False,
                mode: str = "median", span: int = 2, span_top: int = 6,
-               span_bot: Optional[int] = None, need_r: bool = True
+               span_bot: Optional[int] = None, need_r: bool = True,
+               force_plan: Optional[Tuple[int, int]] = None
                ) -> Tuple[Tree, Parts, torch.Tensor]:
     """Build the tree; returns (tree, sorted padded parts, gidx).
 
@@ -239,12 +287,19 @@ def build_tree(p: Parts, block_size: int = 128, refine: bool = False,
     equivalents of order < 0 need); boxes and stats are those of levels
     0..levels, which the finer sorts do not change. need_r=False
     (targets of a kernel that ignores target radii) returns zero radii,
-    as the reference does."""
+    as the reference does. force_plan=(levels, n_pad) builds a tree of
+    that fixed shape even where plan(n, block_size) would give a smaller
+    one (the capacity tiers build every subtree at n_pad / 2^split
+    slots, so the global implicit tree lines up)."""
     if mode not in ("median", "span"):
         raise NotImplementedError(f"tree mode {mode!r} is not ported "
                                   "(ROADMAP.md Queue 1 item 17)")
     n_real = p.n_real
-    levels, n_pad = plan(n_real, block_size)
+    levels, n_pad = force_plan or plan(n_real, block_size)
+    if n_pad < n_real or (1 << levels) * block_size != n_pad:
+        raise ValueError(f"force_plan {force_plan}: {n_pad} slots must "
+                         f"hold {n_real} particles in 2^levels blocks of "
+                         f"{block_size}")
     pp = pad_to(p, n_pad)
     dev = pp.device
     pd = pp.pd

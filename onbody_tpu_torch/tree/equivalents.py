@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from onbody_tpu_torch.ops.kernels import featurize
+from onbody_tpu_torch.ops.kernels import featurize, featurize_flat
 from onbody_tpu_torch.parts import Parts
 from onbody_tpu_torch.tree.build import Tree
 
@@ -364,7 +364,9 @@ def _parked(grid, nc_l, width: int):
 
 def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
                    kernel_name: str, pad8: bool = True, flat: bool = False,
-                   leaf_chunk: int = 4096, dtype=None) -> torch.Tensor:
+                   leaf_chunk: int = 4096, dtype=None,
+                   return_root: bool = False,
+                   out: Optional[torch.Tensor] = None):
     """Feature-major source blocks (NN, C, B) with barycentric proxies,
     equal row for row to featurize(barycentric_blocks(...), pad8) where
     the block size is a multiple of 128 (reference barycentric_fm); a
@@ -376,7 +378,12 @@ def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
     bounds the temporary beside the output. dtype (None: the particles')
     is the type the rows are featurized in: the proxies are computed in
     the particles' type, then promoted (grav3d's sr^2 squared after the
-    promotion, as the reference's fp64 tier squares it)."""
+    promotion, as the reference's fp64 tier squares it). return_root=True
+    returns (fm, root grid (M, PD), root strengths (M, SD)) as well: the
+    raw root proxies, which the capacity tiers anterpolate on upward
+    across subtree roots (reference :554-560). out: a (NN, C, B) tensor
+    to write the rows into (the capacity tiers pass a view of a larger
+    slab, so no second slab-sized array is made)."""
     x, r, s = sorted_parts.x, sorted_parts.r, sorted_parts.s
     pd, sd = x.shape[1], s.shape[1]
     width = tree.block_size
@@ -391,7 +398,13 @@ def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
     safe0 = feat(x.new_zeros((1, width, pd)), x.new_ones((1, width)),
                  x.new_zeros((1, width, sd)))
     nn = (1 + n_eq_parts(width, order, pd)) * nleaf
-    fm = safe0.new_zeros((nn,) + safe0.shape[1:])
+    if out is None:
+        fm = safe0.new_zeros((nn,) + safe0.shape[1:])
+    else:
+        if out.shape != (nn,) + safe0.shape[1:] or out.dtype != dtype:
+            raise ValueError(f"out {tuple(out.shape)} {out.dtype}: the rows "
+                             f"are {(nn,) + tuple(safe0.shape[1:])} {dtype}")
+        fm = out.zero_()
     fm[0] = safe0[0]
     xb, rb, sb = (x.view(nleaf, width, pd), r.view(nleaf, width),
                   s.view(nleaf, width, sd))
@@ -405,7 +418,51 @@ def barycentric_fm(tree: Tree, sorted_parts: Parts, order: int,
                               eq_s.new_zeros((nseg, width - m, sd))], 1)
             fm[rows] = feat(_parked(grid[:, lo:lo + m], nc_l, width),
                             r_first.expand(nseg, width), st_w)
-    return fm.view(nn, -1) if flat else fm
+    fm = fm.view(nn, -1) if flat else fm
+    if return_root:
+        return fm, grid[0], eq_s[0]
+    return fm
+
+
+def top_proxies(nc, ns, root_grid, root_eq, rfirst, order: int,
+                width: int, kernel_name: str) -> torch.Tensor:
+    """The capacity tiers' top source rows (reference bigN.py:359-398,
+    outofcore.py:425-451): the barycentric upward pass continued from the
+    2^split subtree roots' raw proxies (root_grid (ndev, M, PD), root_eq
+    (ndev, M, SD), barycentric_fm(return_root=True)) through the global
+    levels < split, featurized as lean rows. nc, ns: the global tree's
+    (NN, PD) boxes; rfirst (ndev,): each subtree's first particle radius
+    (a top node takes its leftmost subtree's). Returns (ndev, C, width):
+    top node i at row i, and row 0 the inert pad row (position 0, radius
+    1, strength 0), which every padded group entry gathers, so a target
+    grid point exactly at the origin cannot meet rsqrt(<= 0) (three top
+    nodes cornered at the origin at split 6)."""
+    ndev, M, pd = root_grid.shape
+    sd = root_eq.shape[2]
+    dev = root_grid.device
+    inert = featurize_flat(kernel_name,
+                           torch.zeros((width, pd), device=dev),
+                           torch.ones((width,), device=dev),
+                           torch.zeros((width, sd), device=dev))
+    top_fm = inert.new_zeros((ndev,) + tuple(inert.shape))
+    top_fm[0] = inert
+    child_pos, child_str = root_grid, root_eq
+    rf = torch.as_tensor(rfirst, dtype=torch.float32, device=dev)
+    nseg = ndev
+    while nseg > 1:
+        nseg //= 2
+        nc_l = nc[nseg:2 * nseg]
+        ns_l = ns[nseg:2 * nseg].clamp(min=1e-20)
+        eq_s = anterp_factored(child_pos.reshape(nseg, -1, pd), nc_l, ns_l,
+                               order, child_str.reshape(nseg, -1, sd))
+        grid = _grid_positions(nc_l, ns_l, order)
+        rf = rf[0::2]
+        st_w = torch.cat([eq_s, eq_s.new_zeros((nseg, width - M, sd))], 1)
+        top_fm[nseg:2 * nseg] = featurize_flat(
+            kernel_name, _parked(grid, nc_l, width),
+            rf[:, None].expand(nseg, width), st_w)
+        child_pos, child_str = grid, eq_s
+    return top_fm
 
 
 def target_geo_fm(tree: Tree, sorted_targs: Parts,
@@ -434,17 +491,19 @@ def target_geo_fm(tree: Tree, sorted_targs: Parts,
 
 
 def _target_geo_slab_impl(tree: Tree, x, r, root: int, order: int,
-                          levels: int, split: int,
-                          block_size: int) -> torch.Tensor:
+                          levels: int, split: int, block_size: int,
+                          x_base: int = 0) -> torch.Tensor:
     """Owner-major target-geometry slab (R, 8, B) of the level-`split`
     subtree rooted at node `root` (reference _target_geo_slab_impl).
 
     Row layout is parallel.mesh.local_rows': rows [0, 2^split) the global
     top nodes (their grids at the nodes' boxes, sizes floored at 1e-20,
     radius the mean of r), then the subtree's levels split..levels, each
-    row as target_geo_fm writes it. x, r: the whole sorted targets (the
-    reference's x_base, for arrays that hold one subtree's particles, is
-    the out-of-core tiers', ROADMAP item 15)."""
+    row as target_geo_fm writes it. x, r: the sorted targets from global
+    slot x_base on: the whole array (x_base 0), or one subtree's slots
+    (x_base = its first global slot), as the capacity tiers
+    (traverse/bigN.py, traverse/outofcore.py) pass them; the top rows'
+    radius is then the mean over those slots, as in the reference."""
     pd = x.shape[1]
     M = (order + 1) ** pd
     nleaf = 1 << levels
@@ -465,7 +524,7 @@ def _target_geo_slab_impl(tree: Tree, x, r, root: int, order: int,
         w = 1 << (l - split)
         id0 = root << (l - split)
         if l == levels:
-            p0 = (id0 - nleaf) * block_size
+            p0 = (id0 - nleaf) * block_size - x_base
             geo[row:row + w, :pd] = x[p0:p0 + w * block_size].view(
                 w, width, pd).transpose(1, 2)
             geo[row:row + w, pd] = r[p0:p0 + w * block_size].view(w, width)
@@ -473,7 +532,7 @@ def _target_geo_slab_impl(tree: Tree, x, r, root: int, order: int,
             # the per-node first-particle radius, from the global slot
             # count of the level
             n_lvl = (nleaf * block_size) >> l
-            p0 = (id0 - (1 << l)) * n_lvl
+            p0 = (id0 - (1 << l)) * n_lvl - x_base
             grid_rows(slice(row, row + w), tree.nc[id0:id0 + w],
                       tree.ns[id0:id0 + w], r[p0:p0 + w * n_lvl:n_lvl])
         row += w

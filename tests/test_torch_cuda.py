@@ -20,11 +20,13 @@ import torch
 
 from _torch_parity import (SLICE_KW, PairedSpy, kernel_inputs, rel_rms,
                            scale_rel_max, torch_parts)
+from onbody_tpu_torch import parts as P
 from onbody_tpu_torch.config import SolverConfig
 from onbody_tpu_torch.ops import cuda_direct, cuda_lib, cuda_pairs
 from onbody_tpu_torch.ops.kernels import get_kernel
 from onbody_tpu_torch.parts import Parts
-from onbody_tpu_torch.traverse import chunked, direct, dtt, treecode
+from onbody_tpu_torch.traverse import (bigN, chunked, direct, dtt, outofcore,
+                                       treecode)
 
 pytestmark = pytest.mark.cuda
 
@@ -969,6 +971,94 @@ def test_chunked_on_card_matches_cpu(dev, fetch, n_chunks, monkeypatch):
     assert int(info.overflow) == int(cpu_info.overflow) == 0
     assert int(info.n_valid) == int(cpu_info.n_valid)
     assert rel_rms(out.cpu(), cpu_out) <= 1e-5
+
+
+# ------------------------------------------------ the capacity tiers
+
+TIER_KW = dict(block_size=128, order=4, theta_dtt=1.3, frontier_width=192,
+               list_width=512, cap_groups_dtt=64, pair_fetch="pregather")
+
+
+_STRATIFIED_GEN = bigN.make_stratified_gen
+
+
+def _cpu_strata(seed, n, split, sd, sources, device="cpu"):
+    """make_stratified_gen's signature, its strata drawn on the CPU and
+    moved to `device`, so the card and the CPU see the same bits."""
+    gen = _STRATIFIED_GEN(seed, n, split, sd, sources, "cpu")
+    return lambda t: _to(gen(t), device)
+
+
+def test_stratified_on_card_matches_cpu(dev, monkeypatch):
+    """solve_dtt_stratified on the card (K8 + reduction on each slab, K4
+    for the validation) against the CPU's twins on the same strata,
+    N = 24000 at split 2 with slab_cache 1 (rebuilds forced): the
+    subsample's outputs within 1e-5 rel-RMS, n_valid, overflow, hits and
+    misses equal, val_rel_rms < 3e-4."""
+    monkeypatch.setattr(bigN, "make_stratified_gen", _cpu_strata)
+    cfg = SolverConfig(**TIER_KW)
+    run = dict(split=2, slab_cache=1, n_val=256, profile=False)
+    cpu_dbg, dbg = {}, {}
+    cpu_stats, cpu_info = bigN.solve_dtt_stratified(
+        KER, cfg, 24000, 3, debug_out=cpu_dbg, device="cpu", **run)
+    cuda_pairs.LAUNCHES.clear()
+    cuda_direct.LAUNCHES.clear()
+    stats, info = bigN.solve_dtt_stratified(
+        KER, cfg.replace(pair_backend="cuda"), 24000, 3, debug_out=dbg,
+        device=dev, **run)
+    inst = cuda_lib.instance("grav3d", "rm")
+    assert cuda_pairs.LAUNCHES[("exec_pre_seg", inst)] > 0
+    assert cuda_direct.LAUNCHES[("direct", inst)] >= 4
+    assert info == cpu_info and info["overflow"] == 0
+    for k in ("cache_hits", "cache_misses", "got_nan", "ref_nan",
+              "out_nan"):
+        assert stats[k] == cpu_stats[k], k
+    assert stats["cache_misses"] >= 3
+    assert rel_rms(dbg["val_got"], cpu_dbg["val_got"]) <= 1e-5
+    assert stats["val_rel_rms"] < 3e-4
+    assert stats["peak_alloc_gb"] > 0
+
+
+def test_stratified_generator_regenerates_on_card(dev):
+    """make_stratified_gen on the card: one stratum drawn twice is the
+    same bits (a slab rebuild and the validation regenerate strata)."""
+    gen = bigN.make_stratified_gen(12345, 1 << 20, 4, 1, True, dev)
+    a, b = gen(9), gen(9)
+    assert a.x.is_cuda and torch.equal(a.x, b.x) and torch.equal(a.s, b.s)
+    assert not torch.equal(a.x, gen(10).x)
+
+
+def test_outofcore_on_card_matches_cpu(dev):
+    """solve_dtt_outofcore on the card against the CPU's twins on the same
+    chunks (drawn on the CPU), N = 30000 at split 2, 4 chunks: gidx,
+    n_valid and overflow equal, the leaf outputs within 1e-5 rel-RMS on
+    the real slots, K8 launched."""
+    n, m_chunk = 30_000, 1 << 13
+
+    def gens(device):
+        def side(sources):
+            def gen(c):
+                g = torch.Generator().manual_seed(2 * c + int(sources))
+                m = min(m_chunk, n - c * m_chunk)
+                p = P.random_in_cube(g, m, 3, 1 if sources else 0, sources)
+                return _to(p, device)
+            return gen
+        return side(True), side(False)
+    cfg = SolverConfig(**TIER_KW)
+    cpu_res, cpu_info = outofcore.solve_dtt_outofcore(
+        KER, cfg, n, *gens("cpu"), m_chunk=m_chunk, split=2, device="cpu")
+    cuda_pairs.LAUNCHES.clear()
+    res, info = outofcore.solve_dtt_outofcore(
+        KER, cfg.replace(pair_backend="cuda"), n, *gens(dev),
+        m_chunk=m_chunk, split=2, device=dev)
+    inst = cuda_lib.instance("grav3d", "rm")
+    assert cuda_pairs.LAUNCHES[("exec_pre_seg", inst)] > 0
+    assert (info["n_valid"], info["overflow"]) == (cpu_info["n_valid"],
+                                                   cpu_info["overflow"])
+    assert info["overflow"] == 0
+    assert (res["gidx"] == cpu_res["gidx"]).all()
+    real = res["gidx"] < n
+    assert rel_rms(res["out"][real], cpu_res["out"][real]) <= 1e-5
 
 
 # ------------------------------------------------ the accuracy tier (fp64)
