@@ -1,7 +1,8 @@
 """onbody_tpu_torch — the onbody fast-summation engine in PyTorch and CUDA.
 
 A second package beside `onbody_tpu` (the JAX reference). It mirrors the
-reference module for module (`ops/`, `tree/`, `traverse/`) and keeps its
+reference module for module (`ops/`, `tree/`, `traverse/`, `parallel/`,
+`api/`) and keeps its
 array layouts at every public function, so each stage can be held
 against its reference counterpart on the same inputs.
 

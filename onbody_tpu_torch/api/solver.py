@@ -9,7 +9,8 @@ Targets may alias sources (self-interaction is regularized).
 
 Inputs are numpy arrays or tensors. `device=None` runs on the CUDA
 device and raises when there is none; pass `device="cpu"` to run the
-plain twins on the CPU. The C ABI bridge is not ported (ROADMAP item 16).
+plain twins on the CPU. C and Fortran hosts reach these functions
+through the C ABI shim (api/cabi/onbody_c.cpp, api/cabi_bridge.py).
 """
 
 from __future__ import annotations

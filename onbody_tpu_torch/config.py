@@ -132,8 +132,9 @@ def check_supported(cfg: SolverConfig, kernel=None) -> None:
     vortgrad3d: rm, exp; vort3d also v2); grav3d ignores core_func, as
     the reference does."""
     def no(what, item):
-        raise NotImplementedError(f"{what} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item {item})")
+        raise NotImplementedError(
+            f"{what} is not ported: measurement rejected it "
+            f"(onbody_tpu_torch/PARITY.md; ROADMAP.md Queue 1 item {item})")
     if kernel is not None and kernel.cores \
             and cfg.core_func not in kernel.cores:
         raise ValueError(f"core_func {cfg.core_func!r}: {kernel.name} "

@@ -523,6 +523,14 @@ def build_dtt_pairs(stree: Tree, ttree: Tree, theta: float,
     return PairList(tgt=tgt, src=src, n_valid=nv, overflow=ov)
 
 
+def top_prefix_len(split: int, levels_t: int, W: int) -> int:
+    """Flat pair-list length of target levels 0..split-1 of a level list
+    W slots a row (the replicated top prefix of the sharded and chunked
+    decompositions; reference top_prefix_len). levels_t is unused, as
+    in the reference."""
+    return sum((1 << l) * W for l in range(split))
+
+
 def _dtt_lists_top(stree: Tree, ttree: Tree, theta: float, levels_s: int,
                    split: int, frontier_width: int,
                    mac_geometry: str = "quant"):
@@ -532,7 +540,8 @@ def _dtt_lists_top(stree: Tree, ttree: Tree, theta: float, levels_s: int,
     the top levels' pairs (global ids, tgt on pad slots too) and the
     deferred candidate rows (2^split, W) of the level-`split` subtree
     roots, from which each subtree continues its own descent. Needs
-    split < levels_t (the roots are not leaves)."""
+    split < levels_t (the roots are not leaves); at split 0 the lists
+    are empty and the row is the root's own, [1, 0, ...]."""
     W = frontier_width
     dev = ttree.x.device
     nleaf_s = 1 << levels_s
@@ -557,6 +566,10 @@ def _dtt_lists_top(stree: Tree, ttree: Tree, theta: float, levels_s: int,
         nxt, ovc = _defer_kids(cand, defer, nleaf_s, W)
         overflow = overflow + ovc
         cand = torch.repeat_interleave(nxt, 2, dim=0)
+    if not split:
+        # no top levels: the root's own row is the one subtree's start
+        none = cand.new_zeros((0,))
+        return none, none, cand, overflow
     return torch.cat(all_tgt), torch.cat(all_src), cand, overflow
 
 
@@ -684,6 +697,33 @@ def build_dtt_pairs_level2(stree: Tree, ttree: Tree, theta: float,
     leaf2 = PairList(tgt=p2t, src=p2s, n_valid=(p2s != 0).sum(),
                      overflow=torch.zeros_like(ov))
     return interior, leaf2
+
+
+def _seg_rank(flag, is_start):
+    """Within-run rank among flagged entries (0-based, valid where flag)
+    (reference _seg_rank)."""
+    f = flag.long()
+    c = torch.cumsum(f, 0)
+    excl = c - f
+    base = torch.cummax(torch.where(is_start, excl, 0), 0).values
+    return c - 1 - base
+
+
+def _emit_groups(pt, ps, accept, is_start, group: int, cap_g: int):
+    """G-wide groups from the accepted entries of a flat run list
+    (reference _emit_groups): a target's groups stay consecutive.
+    Returns (out_t (cap_g,), out_s (cap_g, G), entries past cap_g)."""
+    slot = _seg_rank(accept, is_start) % group
+    gstart = accept & (slot == 0)
+    gid = torch.cumsum(gstart.long(), 0) - 1
+    ok = accept & (gid < cap_g)
+    overflow = (accept & (gid >= cap_g)).sum()
+    out_t = pt.new_zeros((cap_g + 1,)).index_put_(
+        (torch.where(gstart & ok, gid, cap_g),), pt)[:cap_g]
+    flat = torch.where(ok, gid * group + slot, cap_g * group)
+    out_s = ps.new_zeros((cap_g * group + 1,)).index_put_(
+        (flat,), torch.where(ok, ps, 0))[:cap_g * group]
+    return out_t, out_s.view(cap_g, group), overflow
 
 
 def _compact_groups(tgt, src, cap: int, group: int, slot_width: int):

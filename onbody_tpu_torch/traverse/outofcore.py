@@ -64,12 +64,6 @@ from onbody_tpu_torch.tree.build import TREE_FIELDS, Tree
 from onbody_tpu_torch.utils.device import resolve
 
 
-def _codes_of(x, lo, step):
-    """u16 grid codes (0..65534) of (m, pd) positions, int32."""
-    c = torch.clamp(torch.floor((x - lo[None, :]) / step[None, :]), 0, 65534)
-    return c.to(torch.int32)
-
-
 def _partition_chunk(cols, idx, nid):
     """Stable-sort a chunk's float columns and original-index column by
     subtree id. Returns (stacked (m, k), idx, nid sorted)."""
@@ -107,13 +101,10 @@ def _partition_side(gen_chunk, chunk_sizes, split: int, n_pad: int,
         hi = h if hi is None else np.maximum(hi, h)
     if ph:
         ph("box")
-    step = np.maximum((hi - lo) / 65534.0, 1e-30)
     dev = x.device
-    lo_t = torch.from_numpy(np.asarray(lo, np.float32)).to(dev)
-    step_t = torch.from_numpy(np.asarray(step, np.float32)).to(dev)
 
     def gen_codes(c):
-        return _codes_of(gen_chunk(c)[1], lo_t, step_t)
+        return hsplit.box_codes(gen_chunk(c)[1], lo, hi)
 
     n = sum(chunk_sizes)
     planes, quotas, axes, nids = hsplit.run_top_split(

@@ -292,8 +292,10 @@ def build_tree(p: Parts, block_size: int = 128, refine: bool = False,
     one (the capacity tiers build every subtree at n_pad / 2^split
     slots, so the global implicit tree lines up)."""
     if mode not in ("median", "span"):
-        raise NotImplementedError(f"tree mode {mode!r} is not ported "
-                                  "(ROADMAP.md Queue 1 item 17)")
+        raise NotImplementedError(f"tree mode {mode!r} is not ported: "
+                                  "measurement rejected it (onbody_tpu_"
+                                  "torch/PARITY.md; ROADMAP.md Queue 1 "
+                                  "item 17)")
     n_real = p.n_real
     levels, n_pad = force_plan or plan(n_real, block_size)
     if n_pad < n_real or (1 << levels) * block_size != n_pad:

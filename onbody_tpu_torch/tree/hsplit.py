@@ -30,6 +30,18 @@ import torch
 _NB = 65536
 
 
+def box_codes(x: torch.Tensor, box_lo: np.ndarray,
+              box_hi: np.ndarray) -> torch.Tensor:
+    """u16 grid codes (0..65534) of (m, pd) positions in the real box
+    (box_lo, box_hi: float32 numpy (pd,)), int32; the step is computed
+    in float32 on the host, so every chunk or rank gets the same grid."""
+    step = np.maximum((box_hi - box_lo) / 65534.0, 1e-30)
+    lo = torch.from_numpy(np.asarray(box_lo, np.float32)).to(x.device)
+    step = torch.from_numpy(np.asarray(step, np.float32)).to(x.device)
+    c = torch.clamp(torch.floor((x - lo[None, :]) / step[None, :]), 0, 65534)
+    return c.to(torch.int32)
+
+
 def _axis_codes(codes: torch.Tensor, nid: torch.Tensor,
                 axes: torch.Tensor) -> torch.Tensor:
     """Each particle's code on its node's split axis: (m,) int64."""
@@ -114,6 +126,46 @@ def chunk_assign(codes: torch.Tensor, nid: torch.Tensor, axes: torch.Tensor,
     return 2 * nid + (~left).to(nid.dtype)
 
 
+def level_axes(blo: np.ndarray, bhi: np.ndarray, box_lo: np.ndarray,
+               box_hi: np.ndarray) -> np.ndarray:
+    """Split axis per node: the longest side of its plane-derived box
+    (blo, bhi (nnode, pd), code units) in the real box's units."""
+    scale = (box_hi.astype(np.float64) - box_lo.astype(np.float64)) / 65535.0
+    return np.argmax((bhi - blo) * scale[None, :], axis=1).astype(np.int32)
+
+
+def child_pads(hist: np.ndarray, planes: np.ndarray, need: np.ndarray,
+               ties: List[np.ndarray], pads: np.ndarray, target: int
+               ) -> np.ndarray:
+    """The children's virtual-pad mass (2 * nnode,), left then right per
+    node: left reals = count_less(real) + the real tie quota; left pads
+    fill the rest of the target slots. hist holds the pads at bin 65535."""
+    real_cum = np.cumsum(hist, axis=1)
+    real_cum[:, _NB - 1] -= pads                       # reals only
+    less_r = np.where(planes > 0,
+                      np.take_along_axis(real_cum, (planes - 1)[:, None],
+                                         1)[:, 0], 0)
+    total_ties = (np.sum(ties, axis=0) if len(ties)
+                  else np.zeros(len(planes), np.int64))
+    left_reals = less_r + np.minimum(need, total_ties)
+    pads_l = target - left_reals
+    out = np.stack([pads_l, pads - pads_l], axis=1).reshape(-1)
+    assert (out >= 0).all()
+    return out
+
+
+def child_boxes(blo: np.ndarray, bhi: np.ndarray, axes: np.ndarray,
+                planes: np.ndarray):
+    """The children's plane-derived boxes, left then right per node."""
+    nlo = np.repeat(blo, 2, axis=0)
+    nhi = np.repeat(bhi, 2, axis=0)
+    for i in range(len(planes)):
+        a = axes[i]
+        nhi[2 * i, a] = planes[i]
+        nlo[2 * i + 1, a] = planes[i]
+    return nlo, nhi
+
+
 def run_top_split(gen_codes, n_chunks: int, m_chunk: int, split: int,
                   box_lo: np.ndarray, box_hi: np.ndarray,
                   keep_nid: bool = True, virtual_pad_slots: int = 0,
@@ -137,8 +189,6 @@ def run_top_split(gen_codes, n_chunks: int, m_chunk: int, split: int,
     int32), and the final per-chunk subtree ids (int32 tensors; None if
     keep_nid=False)."""
     pd = box_lo.shape[0]
-    lo = box_lo.astype(np.float64)
-    hi = box_hi.astype(np.float64)
     sizes = chunk_sizes or [m_chunk] * n_chunks
     # plane-derived boxes per node, in code units
     blo = np.zeros((1, pd))
@@ -150,8 +200,7 @@ def run_top_split(gen_codes, n_chunks: int, m_chunk: int, split: int,
 
     for l in range(split):
         nnode = 1 << l
-        axes = np.argmax((bhi - blo) * ((hi - lo) / 65535.0)[None, :],
-                         axis=1).astype(np.int32)
+        axes = level_axes(blo, bhi, box_lo, box_hi)
         target = n_slots // (2 * nnode)
         hist = np.zeros((nnode, _NB), np.int64)
         per_chunk_hists = []
@@ -168,21 +217,7 @@ def run_top_split(gen_codes, n_chunks: int, m_chunk: int, split: int,
         planes, need = plan_level(hist, target)
         ties = [h[np.arange(nnode), planes] for h in per_chunk_hists]
         quotas = tie_quotas(ties, need)
-        # the children's virtual-pad mass: left reals = count_less(real)
-        # + the real tie quota; left pads fill the rest of slots / 2
-        real_cum = np.cumsum(hist, axis=1)
-        real_cum[:, _NB - 1] -= pads                   # reals only
-        less_r = np.where(planes > 0,
-                          np.take_along_axis(real_cum,
-                                             (planes - 1)[:, None],
-                                             1)[:, 0], 0)
-        total_ties = (np.sum(ties, axis=0) if ties
-                      else np.zeros(nnode, np.int64))
-        left_reals = less_r + np.minimum(need, total_ties)
-        pads_l = target - left_reals
-        pads_r = pads - pads_l
-        pads = np.stack([pads_l, pads_r], axis=1).reshape(-1)
-        assert (pads >= 0).all()
+        pads = child_pads(hist, planes, need, ties, pads, target)
         for c in range(n_chunks):
             codes = gen_codes(c)
             dev = codes.device
@@ -193,14 +228,7 @@ def run_top_split(gen_codes, n_chunks: int, m_chunk: int, split: int,
         planes_all.append(planes)
         quotas_all.append(quotas)
         axes_all.append(axes)
-        # the children's plane-derived boxes
-        nlo = np.repeat(blo, 2, axis=0)
-        nhi = np.repeat(bhi, 2, axis=0)
-        for i in range(nnode):
-            a = axes[i]
-            nhi[2 * i, a] = planes[i]
-            nlo[2 * i + 1, a] = planes[i]
-        blo, bhi = nlo, nhi
+        blo, bhi = child_boxes(blo, bhi, axes, planes)
     if split == 0:
         nids = [torch.zeros((sizes[c],), dtype=torch.int32,
                             device=gen_codes(c).device)

@@ -5,8 +5,9 @@ the ablated grav3d bodies; K4 direct, its source splits and their
 reduction; the accuracy tier's K1-f64 and K4-f64)
 against their plain twins and the fp64 oracle, for every (workload,
 core) instantiation, and the slice on the card against the slice on the
-CPU for every workload and fetch. Every test needs a CUDA device and
-skips without one.
+CPU for every workload and fetch; the multi-device solves over NCCL at
+world size 1 and the C ABI shim on the card against the CPU. Every test
+needs a CUDA device and skips without one.
 This file imports no jax, so on the GPU machine it runs without the
 reference package's conftest:
 
@@ -15,6 +16,7 @@ reference package's conftest:
 
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -1182,3 +1184,125 @@ def test_fused_graph_f64_equals_split(dev):
     assert torch.equal(out, ref)
     assert int(info.overflow) == int(rinfo.overflow) == 0
     dtt.clear_fused_cache()
+
+
+# ------------------------------------- multi-device (NCCL) and the C ABI
+
+@pytest.fixture
+def nccl1(dev, tmp_path):
+    """A one-rank NCCL process group in this process (the card's machine
+    has one GPU; NCCL refuses two ranks on it)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rv",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("method", ["dtt", "stream", "treecode3", "prepare"])
+def test_sharded_on_card_matches_cpu(dev, nccl1, method):
+    """The sharded solves over NCCL at world size 1 on the card
+    (scripts/multichip.solve_cases on the card's mesh; "prepare" is
+    prepare_and_solve_sharded) against the port's monolithic solve on the
+    CPU's twins on the same inputs (on the CPU the sharded solves at
+    world size 1 equal it bit for bit, tests/test_torch_mesh.py): within
+    1e-5 rel-RMS, overflow 0, kernels launched."""
+    from onbody_tpu_torch.scripts import multichip
+    from onbody_tpu_torch.traverse import dtt, treecode
+    kernel = KER
+    n = 8192
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 3, n)
+    cfg = SolverConfig(block_size=128, order=4, theta_dtt=1.3,
+                       frontier_width=192, list_width=512,
+                       cap_groups_dtt=64, pair_fetch="pregather",
+                       tree_mode="median")
+    case = dict(method=method, kernel="grav3d", cfg=cfg,
+                inputs=(sx, sr, ss, tx, tr))
+    cuda_pairs.LAUNCHES.clear()
+    out, ov, _ = multichip.solve_cases([case])[0]
+    assert ov == 0 and sum(cuda_pairs.LAUNCHES.values()) > 0
+    plan = treecode.prepare(kernel, cfg, torch_parts(sx, sr, ss),
+                            torch_parts(tx, tr))
+    solve = treecode.solve_treecode3 if method == "treecode3" else \
+        dtt.solve_dtt
+    ref = solve(kernel, cfg, plan)[0].numpy()
+    assert rel_rms(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("method", ["dtt", "stream", "treecode3"])
+def test_sharded_f64_on_card_matches_cpu(dev, nccl1, method):
+    """The accuracy tier through the sharded solves over NCCL at world
+    size 1 (accum_dtype float64: K1-f64 for every fetch): within 1e-12
+    rel-RMS of the port's fp64 monolithic solve on the same plan on the
+    card (bit for bit on the CPU, tests/test_torch_mesh.py), and within
+    1e-6 of the monolithic solve on the CPU's twins on the same inputs
+    (the fp32 proxies differ in their last bits between the two, as in
+    test_f64_slice_on_card_matches_cpu); float64 out, overflow 0,
+    K1-f64 launched."""
+    from onbody_tpu_torch.parallel import mesh as pmesh
+    from onbody_tpu_torch.traverse import dtt, treecode
+    kernel = KER
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 3, 8192)
+    srcs, targs = torch_parts(sx, sr, ss), torch_parts(tx, tr)
+    cfg = SolverConfig(block_size=128, order=4, theta_dtt=1.3,
+                       frontier_width=192, list_width=512,
+                       cap_groups_dtt=64, pair_fetch="pregather",
+                       tree_mode="median", accum_dtype=torch.float64)
+    sharded = {"dtt": pmesh.solve_dtt_sharded,
+               "stream": pmesh.solve_dtt_sharded_stream,
+               "treecode3": pmesh.solve_treecode3_sharded}[method]
+    solve = treecode.solve_treecode3 if method == "treecode3" else \
+        dtt.solve_dtt
+    plan = treecode.prepare(kernel, cfg, _to(srcs, dev), _to(targs, dev))
+    cuda_pairs.LAUNCHES.clear()
+    out, info = sharded(kernel, cfg, pmesh.make_mesh(), plan)
+    torch.cuda.synchronize()
+    assert sum(v for (k, _), v in cuda_pairs.LAUNCHES.items()
+               if k == "exec64") > 0, cuda_pairs.LAUNCHES
+    assert int(info.overflow) == 0 and out.dtype == torch.float64
+    mono = solve(kernel, cfg, plan)[0]
+    assert rel_rms(out.cpu(), mono.cpu()) <= 1e-12
+    cpu = solve(kernel, cfg, treecode.prepare(kernel, cfg, srcs, targs))[0]
+    assert rel_rms(out.cpu(), cpu) <= 1e-6
+
+
+def test_cabi_on_card_matches_cpu(dev, tmp_path):
+    """The C ABI shim (scripts/cabi_driver.py in a fresh interpreter) on
+    the card (ONBODY_CABI_DEVICE unset) against the same calls on the
+    CPU: every symbol within 1e-5 rel-RMS, the solvers within the API's
+    limits of the direct symbols, K8 and K4 launched on the card."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+
+    def drive(out, device):
+        env = dict(os.environ, ONBODY_TPU_TORCH_ROOT=str(root))
+        env.pop("ONBODY_CABI_DEVICE", None)
+        if device:
+            env["ONBODY_CABI_DEVICE"] = device
+        out.mkdir()
+        res = subprocess.run(
+            [sys.executable, "-m", "onbody_tpu_torch.scripts.cabi_driver",
+             str(out), "--n", "6000", "--n3", "4000", "--reps", "1"],
+            capture_output=True, text=True, env=env, cwd=root, timeout=600)
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith("CABI ")]
+        assert res.returncode == 0 and len(line) == 1, res.stderr[-3000:]
+        calls = json.loads(line[0][5:])["calls"]
+        return calls, {s: np.load(out / f"{s}.npy") for s in calls}
+
+    calls, card = drive(tmp_path / "card", None)
+    _, cpu = drive(tmp_path / "cpu", "cpu")
+    for sym, c in calls.items():
+        assert rel_rms(card[sym], cpu[sym]) <= 1e-5, sym
+        want = "exec_pre_seg" if "solver" in sym else "direct"
+        assert c["launches"].get(want, 0) > 0, (sym, c["launches"])
+    for kind, pd in (("f", 2), ("tr_f", 2), ("3dvg_f", 3)):
+        a = card[f"external_vel_solver_{kind}_"]
+        b = card[f"external_vel_direct_{kind}_"]
+        assert rel_rms(a[:, :pd], b[:, :pd]) < 1e-3
+        if pd == 3:
+            assert rel_rms(a[:, 3:], b[:, 3:]) < 2e-2
