@@ -10,9 +10,16 @@
 // A per-source term that does not depend on the target is computed once
 // when the source block is staged (aux3), not per pair: sr^2 for RM,
 // corefac = 1/max(sr^3, TINY) for the exponential core, sr^4 for
-// Vatistas (3D only). The 2D cores take sr^2 and tr^2 (both cores need
-// them).
+// Vatistas (3D only). The 2D cores take d = t - s, sr^2 and tr^2 (both
+// cores need the radii; RM folds them into |d|^2 by FMA).
+//
+// K5 (vort2d's RM core) and K6-v2 (the Vatistas core) take their
+// reciprocal and square roots from mufu.cuh: one MUFU each, no IEEE
+// fix-up and no slow-path branch in the pair loop. Every other core keeps
+// the build's IEEE operations.
 #pragma once
+
+#include "mufu.cuh"
 
 namespace onbody {
 
@@ -36,9 +43,13 @@ struct CoreRm {
     bbb = -3.f * r3 * rinv2;
   }
 
-  // 1/(d^2 + sr^2 + tr^2)
-  __device__ static float c2(float d2, float sr2, float tr2) {
-    return 1.f / ((d2 + sr2) + tr2);
+  // 1/(|d|^2 + sr^2 + tr^2), K5: 1 FADD, 2 FFMA and one MUFU.RCP
+  // (rcp_approx). The operand is a sum of squares, so >= 0; it is
+  // subnormal only for radii and a distance all below 1.1e-19, where the
+  // flush gives 1/0 = inf, the division's own result at d = 0 with zero
+  // radii.
+  __device__ static float c2(float dx, float dy, float sr2, float tr2) {
+    return rcp_approx(fmaf(dy, dy, fmaf(dx, dx, sr2 + tr2)));
   }
 };
 
@@ -75,7 +86,8 @@ struct CoreExp {
                        : 3.f * (corefac * e - r3_mid) * dm2);
   }
 
-  __device__ static float c2(float d2, float sr2, float tr2) {
+  __device__ static float c2(float dx, float dy, float sr2, float tr2) {
+    const float d2 = fmaf(dy, dy, dx * dx);
     const float ood2 = 1.f / (d2 + 1e-6f);
     const float corefac = 1.f / fmaxf(sr2 + tr2, kTiny);
     const float reld2 = corefac / ood2;
@@ -85,9 +97,12 @@ struct CoreExp {
   }
 };
 
-// Vatistas n = 2 (CoreFunc3d.hpp:185-198), the 3D velocity core only:
-// (d^4 + sr^4)^-3/4 as rsqrt(max(d^4 + sr^4, TINY))^1.5, the guard of
-// v2_3d, so the d2 = 0 self-interaction stays finite for any radius.
+// Vatistas n = 2 (CoreFunc3d.hpp:185-198), the 3D velocity core only, K6-v2:
+// (d^4 + sr^4)^-3/4 as rsqd * sqrt(rsqd), rsqd = rsqrt(max(d^4 + sr^4,
+// TINY)), the guard of v2_3d, so the d2 = 0 self-interaction stays finite
+// for any radius. One MUFU.RSQ and one MUFU.SQRT (mufu.cuh): the guard
+// keeps the rsqrt's operand normal, and rsqd lies in [5.4e-20, 1e15] (0
+// when d^4 overflows, whose sqrt is 0 as before), so neither flush acts.
 struct CoreV2 {
   __device__ static float aux3(float sr) {
     const float s2 = sr * sr;
@@ -95,8 +110,8 @@ struct CoreV2 {
   }
 
   __device__ static float c3(float d2, float s4) {
-    const float rsqd = rsqrtf(fmaxf(fmaf(d2, d2, s4), kTiny));
-    return rsqd * sqrtf(rsqd);
+    const float rsqd = rsqrt_approx(fmaxf(fmaf(d2, d2, s4), kTiny));
+    return rsqd * sqrt_approx(rsqd);
   }
 };
 

@@ -9,8 +9,8 @@
 // 2 (= pd) of the target column. With the RM core a pair needs 8
 // FP32-pipe operations and 1 MUFU: 2 FADD for d, 1 FADD for sr^2 + tr^2,
 // 2 FFMA for |d|^2 + that, 1 FMUL for ss * rcp, 2 FFMA into the sums, and
-// the reciprocal; the two pipes take the same time. The body writes 1/r2
-// as an IEEE division, which issues more than the one reciprocal.
+// the reciprocal; the two pipes take the same time. CoreRm::c2 issues
+// just that (core.cuh): the FMA chain and one MUFU.RCP.
 #pragma once
 
 #include "body.cuh"
@@ -49,8 +49,7 @@ struct Vort2d {
                               float (&acc)[kOut]) {
     const float dx = t.x - s.x;
     const float dy = t.y - s.y;
-    const float d2 = fmaf(dy, dy, dx * dx);
-    const float w = s.ss * Core::c2(d2, s.sr2, t.tr2);
+    const float w = s.ss * Core::c2(dx, dy, s.sr2, t.tr2);
     acc[0] = fmaf(-w, dy, acc[0]);
     acc[1] = fmaf(w, dx, acc[1]);
   }

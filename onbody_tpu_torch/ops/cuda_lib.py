@@ -34,10 +34,10 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # one translation unit per workload
 SOURCES = ("grav3d.cu", "vort2d.cu", "vort3d.cu", "vortgrad3d.cu")
-HEADERS = ("core.cuh", "body.cuh", "async_copy.cuh", "pairs.cuh",
-           "direct.cuh", "entries.cuh", "body64.cuh", "fp64.cuh",
-           "grav3d_body.cuh", "grav3d_ablate_body.cuh", "vort2d_body.cuh",
-           "vort3d_body.cuh", "vortgrad3d_body.cuh")
+HEADERS = ("core.cuh", "mufu.cuh", "body.cuh", "async_copy.cuh",
+           "pairs.cuh", "direct.cuh", "entries.cuh", "body64.cuh",
+           "fp64.cuh", "grav3d_body.cuh", "grav3d_ablate_body.cuh",
+           "vort2d_body.cuh", "vort3d_body.cuh", "vortgrad3d_body.cuh")
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "onbody_tpu_torch")
 LIB_NAME = "libonbody_kernels.so"

@@ -120,6 +120,13 @@ template <class... A> HostLaunch<A...> host_launch(void (*k)(A...), int g,
                                                    int t) {
   return HostLaunch<A...>{k, (unsigned)(g * t), 1u};
 }
+// csrc/mufu.cuh's one-MUFU operations (the file is swapped for an empty
+// header): exact division and square root, the twins' arithmetic
+namespace onbody {
+inline float rcp_approx(float x) { return 1.0f / x; }
+inline float rsqrt_approx(float x) { return 1.0f / sqrtf(x); }
+inline float sqrt_approx(float x) { return sqrtf(x); }
+}  // namespace onbody
 """
 
 # csrc/async_copy.cuh on the host: each barrier counts its completed
@@ -166,6 +173,8 @@ def host_lib(tmp_path_factory):
         text = (cuda_lib.CSRC / f).read_text()
         if f == "async_copy.cuh":
             text = HOST_ASYNC
+        elif f == "mufu.cuh":
+            text = "#pragma once\n"
         text = re.sub(r"extern __shared__ (__align__\(\d+\) )?float "
                       r"(\w+)\[\];", r"float* \2 = host_dyn_smem;", text)
         text = re.sub(r"(\w+<[^<>;]*>)<<<([^,]+), ([^,]+), [^>]*>>>\(",

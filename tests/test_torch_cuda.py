@@ -398,6 +398,96 @@ def test_kernels_refuse_bad_lists(dev):
                                    gs, core="v2")
 
 
+# the cores whose reciprocal and square roots are one MUFU each
+# (csrc/mufu.cuh): K5 (vort2d's RM core) and K6-v2 (vort3d's v2 core);
+# the front door's fetch of each executor kind on them
+ONE_MUFU = [("vort2d", "rm"), ("vort3d", "v2")]
+ONE_MUFU_FETCH = {"exec": "dma_i", "exec_t2": "dma_i",
+                  "exec_pre_seg": "pregather",
+                  "exec_pre_t2_seg": "pregather", "exec_dma": "dma",
+                  "exec_dmap": "dma_p", "exec_static": "static"}
+
+
+def _edge_points(kernel, nn=16, b=B, seed=7):
+    """Points at the one-MUFU cores' edges, (pos, source radii, target
+    radii, strengths) as blocks: every source also a target (d2 = 0 on a
+    block against itself), the inert row 0; vort2d's target radii 0,
+    vort3d's every other source radius 0 (the v2 guard at d2 = 0)."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand((nn, b, kernel.pd), generator=g)
+    rad = 0.03 + 0.04 * torch.rand((nn, b), generator=g)
+    s = torch.randn((nn, b, kernel.sd), generator=g) / b
+    pos[0], rad[0], s[0] = 0.0, 1.0, 0.0
+    trad = rad.clone()
+    if kernel.name == "vort2d":
+        trad[1:] = 0.0
+    else:
+        rad[1:, ::2] = 0.0
+    return pos, rad, trad, s
+
+
+@pytest.mark.parametrize("kind", list(ONE_MUFU_FETCH) + ["direct"])
+@pytest.mark.parametrize("name,core", ONE_MUFU,
+                         ids=[f"{k}-{c}" for k, c in ONE_MUFU])
+def test_one_mufu_cores_at_their_edges(dev, name, core, kind):
+    """K1, K2, K8-K12 through the front door and K4, with K5 and K6-v2,
+    on _edge_points with a self pair in every step: finite where the
+    twin is, within chip_smoke.py's kernel limits of it (1e-5 rel-RMS,
+    1e-4 max-rel), one launch at least, the inert row 0 (and K2's root
+    row 1) untouched."""
+    kernel = get_kernel(name)
+    pos, rad, trad, s = _edge_points(kernel)
+    inst = cuda_lib.instance(name, core)
+    before = cuda_pairs.LAUNCHES[(kind, inst)] + cuda_direct.LAUNCHES[
+        (kind, inst)]
+    if kind == "direct":
+        args = [pos.reshape(-1, kernel.pd), trad.reshape(-1),
+                pos.reshape(-1, kernel.pd), rad.reshape(-1),
+                s.reshape(-1, kernel.sd)]
+        if not kernel.uses_tr:
+            args[1] = torch.zeros_like(args[1])
+        got = cuda_direct.direct_cuda(kernel, *(a.to(dev) for a in args),
+                                      core)
+        twin = cuda_direct.direct_torch(kernel, *args, core)
+        lo = 0
+    else:
+        src_fm = cuda_pairs.build_fm_blocks(kernel, pos, rad, s).to(dev)
+        if kind in ("exec_pre_seg", "exec_pre_t2_seg", "exec_static"):
+            src_fm = src_fm[:, :cuda_pairs.FM_ROWS[name]]
+        src_fm = src_fm.contiguous()
+        tgt_geo = cuda_pairs.build_tgt_geo(pos, trad).contiguous().to(dev)
+        paired = kind in ("exec_t2", "exec_pre_t2_seg")
+        fetch = ONE_MUFU_FETCH[kind]
+        if paired:
+            gt, gs = _groups(dev, [1, 1, 2, 3, 5, 0, 7, 0])
+            gs[:, 0] = 2 * gt                   # row 2q against itself
+            got = torch.zeros((16, cuda_pairs.od8(kernel), B), device=dev)
+            got[1] = 7.25
+            twin = got.clone()
+            for out, tw in ((got, False), (twin, True)):
+                cuda_pairs.exec_pairs_t2(kernel, tgt_geo, src_fm, gt, gs,
+                                         out, core=core, fetch=fetch,
+                                         twin=tw)
+            assert bool((got[1] == 7.25).all())
+            lo = 2
+        else:
+            gt, gs = _groups(dev, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0])
+            gs[:, 0] = gt                       # a block against itself
+            got, twin = (cuda_pairs.exec_pairs(
+                kernel, tgt_geo, src_fm, gt, gs, core=core, fetch=fetch,
+                twin=tw) for tw in (False, True))
+            lo = 1
+        assert not got[0].any()
+    torch.cuda.synchronize()
+    assert cuda_pairs.LAUNCHES[(kind, inst)] + cuda_direct.LAUNCHES[
+        (kind, inst)] > before
+    assert torch.isfinite(twin).all()
+    assert torch.isfinite(got).all()
+    got, twin = got[lo:].cpu(), twin[lo:].cpu()
+    assert rel_rms(got, twin) <= 1e-5
+    assert scale_rel_max(got, twin) <= 1e-4
+
+
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
 def test_k4_matches_twin_and_oracle(dev, name, core):
     kernel = get_kernel(name)

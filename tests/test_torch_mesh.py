@@ -10,8 +10,9 @@ slab for every owner.
 The solves over gloo: world size 1 in this process; 2, 4 and 8 in one
 start of 8 ranks by parallel/launch.py (scripts/multichip.solve_cases),
 the 2- and 4-rank cases side by side on subgroups of it. The ranks start
-with the file's first test and run while this process compiles the JAX
-references. The cases are tests/test_sharding.py's: grav3d
+with the file's first test, and so do the JAX references, each compiled
+and solved in a thread of this process (JAX_THREADS) while it runs the
+port's side. The cases are tests/test_sharding.py's: grav3d
 solve_dtt_sharded, solve_dtt_sharded_stream and
 solve_treecode3_sharded; vort3d and vortgrad3d streamed; the order -1
 copy prolongation; the 2 x 2 two-level mesh. Every rank returns the same
@@ -33,6 +34,7 @@ it; the port's fp64 monolithic solve is held against the JAX package's
 in test_torch_precision_ref.py.
 """
 
+import concurrent.futures
 import functools
 
 import jax
@@ -78,8 +80,24 @@ def _inputs(name: str, seed: int = 0):
     return kernel_inputs(get_kernel(name), seed, N)
 
 
-@functools.cache
+# the JAX package's solves that _check reads, by _jax_reference's
+# arguments, and the threads that solve them with the file's first test
+JAX_KEYS = [("grav3d", "dtt", 3), ("grav3d", "treecode3", 3),
+            ("vort3d", "dtt", 3), ("vortgrad3d", "dtt", 3),
+            ("grav3d", "dtt", -1)]
+JAX_THREADS = 2
+_jax_started = {}
+
+
 def _jax_reference(name: str, method: str, order: int = 3):
+    """The JAX package's monolithic solve on _inputs(name): the thread's
+    result where _rank_start started one."""
+    fut = _jax_started.get((name, method, order))
+    return _jax_solve(name, method, order) if fut is None else fut.result()
+
+
+@functools.cache
+def _jax_solve(name: str, method: str, order: int = 3):
     """The JAX package's monolithic solve on _inputs(name)."""
     sx, sr, ss, tx, tr = _inputs(name)
     jcfg = JConfig(**{**KW, "order": order}, pair_backend="jnp",
@@ -329,13 +347,23 @@ RANK_CASES = {
 @pytest.fixture(scope="module", autouse=True)
 def _rank_start(request):
     """Start the 8 ranks with the file's first test when the sharded
-    cases are selected, so they run while the references compile."""
-    if any(i.name.startswith("test_sharded_solves_match_reference")
-           for i in request.session.items):
+    cases are selected, so they run while the references compile; and
+    the JAX references (JAX_KEYS) in JAX_THREADS threads when a test
+    that reads them is selected."""
+    names = [i.name for i in request.session.items]
+    if any(n.startswith("test_sharded_solves_match_reference")
+           for n in names):
         _started.append(launch.start_ranks(
             multichip.solve_cases, 8, list(RANK_CASES.values()), "cpu",
             backend="gloo"))
-    yield
+    with concurrent.futures.ThreadPoolExecutor(JAX_THREADS) as pool:
+        if any(n.startswith(("test_sharded_solves_match_reference",
+                             "test_world_size_1_matches_reference"))
+               for n in names):
+            for key in JAX_KEYS:
+                _inputs(key[0])
+                _jax_started[key] = pool.submit(_jax_solve, *key)
+        yield
 
 
 _started = []

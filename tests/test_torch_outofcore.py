@@ -6,14 +6,19 @@ Both packages get one numpy-backed chunk generator (coordinates drawn
 without repeats per axis, so both trees sort alike) at split 2 with four
 chunks, the last ragged, in the reference test's configuration (block
 128, order 4, theta 1.3, frontier 192, cap 64, pregather). The reference
-solve compiles its jits inside the call, so it runs once per module
-(fixture `solved`) and every comparison reads it. Tolerances: the
+solve compiles its jits inside the call (~30 s here), so it runs once
+per module, in a thread started with the fixture `solved`, while this
+process runs the port's solve and the tests that read only the port;
+test_outofcore_matches_reference, the one test that reads the
+reference's solve, comes last. Tolerances: the
 partition, gidx, n_valid and overflow exact; the leaf outputs within 1e-5
 rel-RMS of the reference's on the real target slots (pad slots hold
 extrapolated junk in both packages); < 3e-4 against the fp64 oracle, as
 tests/test_outofcore.py asserts; tree and slab floats within 1e-6 of the
 largest value.
 """
+
+import concurrent.futures
 
 import numpy as np
 import pytest
@@ -68,15 +73,20 @@ def _gens(n: int, parts, arrays):
 
 @pytest.fixture(scope="module")
 def solved():
+    """(the arrays, the reference's solve as a future, the port's
+    solve); the reference solves in a thread, joined at the module's
+    end at the latest."""
     arrays = _problem(N)
-    ref = jooc.solve_dtt_outofcore(
-        jget_kernel("grav3d"), JConfig(**KW, tree_defer_rs=True), N,
-        *_gens(N, jax_parts, arrays), m_chunk=M_CHUNK, split=SPLIT)
-    got = outofcore.solve_dtt_outofcore(
-        get_kernel("grav3d"), SolverConfig(**KW), N,
-        *_gens(N, torch_parts, arrays), m_chunk=M_CHUNK, split=SPLIT,
-        device="cpu")
-    return arrays, ref, got
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(
+            jooc.solve_dtt_outofcore, jget_kernel("grav3d"),
+            JConfig(**KW, tree_defer_rs=True), N,
+            *_gens(N, jax_parts, arrays), m_chunk=M_CHUNK, split=SPLIT)
+        got = outofcore.solve_dtt_outofcore(
+            get_kernel("grav3d"), SolverConfig(**KW), N,
+            *_gens(N, torch_parts, arrays), m_chunk=M_CHUNK, split=SPLIT,
+            device="cpu")
+        yield arrays, ref, got
 
 
 @pytest.fixture(scope="module")
@@ -127,15 +137,6 @@ def test_partition_side_identical(solved):
         np.testing.assert_array_equal(got.store[t], ref.store[t])
         np.testing.assert_array_equal(got.idx[t], ref.idx[t])
         assert got.idx[t].dtype == ref.idx[t].dtype
-
-
-def test_outofcore_matches_reference(solved):
-    _, (rres, rinfo), (res, info) = solved
-    np.testing.assert_array_equal(res["gidx"], rres["gidx"])
-    assert (info["n_valid"], info["overflow"]) == (rinfo["n_valid"],
-                                                   rinfo["overflow"])
-    real = res["gidx"] < N
-    assert rel_rms(res["out"][real], rres["out"][real]) < 1e-5
 
 
 def test_outofcore_matches_oracle(solved, oracle):
@@ -257,3 +258,13 @@ def test_target_geo_slab_x_base():
             rtree, xs.numpy(), rs.numpy(), root, order, ttree.levels,
             split, 64, x_base=c * per)
         assert scale_rel_max(part.numpy(), np.asarray(ref)) < 1e-6
+
+
+def test_outofcore_matches_reference(solved):
+    _, ref, (res, info) = solved
+    rres, rinfo = ref.result()
+    np.testing.assert_array_equal(res["gidx"], rres["gidx"])
+    assert (info["n_valid"], info["overflow"]) == (rinfo["n_valid"],
+                                                   rinfo["overflow"])
+    real = res["gidx"] < N
+    assert rel_rms(res["out"][real], rres["out"][real]) < 1e-5

@@ -267,3 +267,113 @@ def test_per_pair_counts_fp64_and_v2_loops():
                        + ("6Vort3d", "6CoreV2"), "MUFU.RSQ", 2,
                        cs.FP32_OPS)
     assert got["pairs_per_iter"] == 1 and got["mufu"] == 2.0
+
+
+# a pair loop with an IEEE division's slow path: the check of the
+# quotient (FCHK), a test and jump around the call, the call, and the
+# convergence barrier around them, as a correctly rounded 1.f / x
+# compiles without -ftz
+SLOW_PATH = ["FCHK P0, R7, R3", "BSSY B0, `(.L_x_5)",
+             "@!P0 BRA `(.L_x_6)", "CALL.REL.NOINC `(.L_x_9)", "BSYNC B0"]
+FAST_BODIES = {"vort2d": ("6Vort2dINS_6CoreRmEE",
+                          ["FADD R3, R2, -R4", "FADD R5, R6, -R7",
+                           "FADD R8, R9, R10", "FFMA R11, R3, R3, R8",
+                           "FFMA R11, R5, R5, R11", "MUFU.RCP R12, R11",
+                           "FMUL R12, R13, R12",
+                           "FFMA R14, -R12, R5, R14",
+                           "FFMA R15, R12, R3, R15"]),
+               "vort3d_v2": ("6Vort3dINS_6CoreV2EE",
+                             ["FADD R3, R2, -R4"] * 3
+                             + ["FMUL R5, R3, R3", "FFMA R5, R3, R3, R5",
+                                "FFMA R5, R3, R3, R5",
+                                "FFMA R6, R5, R5, R7", "FMNMX R6, R6, 1e-30",
+                                "MUFU.RSQ R8, R6", "MUFU.SQRT R9, R8",
+                                "FMUL R8, R8, R9"]
+                             + ["FMUL R10, R3, R3", "FFMA R10, R3, R3, R10"]
+                             * 3 + ["FFMA R11, R8, R10, R11"] * 3)}
+
+
+def _fast_listing(slow=()) -> str:
+    """One function per pair-loop template (SASS_KIND) of K5 and K6-v2 as
+    cuobjdump prints them, each a loop of one pair; the (template
+    fragments, key) pairs in `slow` carry SLOW_PATH in their loop."""
+    out = ["\tcode for sm_90a"]
+    for frag in sorted(set(cs.SASS_KIND.values())):
+        for key, (body, ops) in FAST_BODIES.items():
+            tail = frag[1] if len(frag) > 1 else "E"
+            out.append(f"\t\tFunction : _ZN6onbody{frag[0]}INS_{body}"
+                       f"{tail}EvPKfS3_Pfii")
+            loop = ops + (SLOW_PATH if (frag, key) in slow else [])
+            out.append("        /*0000*/                   MOV R2, RZ ;")
+            out.append(".L_x_3:")
+            for i, op in enumerate(loop + ["@P1 BRA `(.L_x_3)", "EXIT"]):
+                out.append(f"        /*{(i + 1) * 16:04x}*/"
+                           f"                   {op} ;")
+    return "\n".join(out) + "\n"
+
+
+def test_fast_cores_pair_loops_have_no_slow_path():
+    """sass_fast / check_fast: every pair loop of K5 (vort2d, RM) and
+    K6-v2 (vort3d, v2) read per kind; one with a division's slow path (a
+    call and the jump around it, beside the back edge) or more FP32 a
+    pair than FAST_FP32 fails the check."""
+    fast = cs.sass_fast(cs.sass_loops(_fast_listing()))
+    assert set(fast) == {(k, key) for k in cs.SASS_KIND
+                         for key in FAST_BODIES}
+    for (kind, key), c in fast.items():
+        assert c["branches"] == {}
+        # K6-v2's guard is an FMNMX, not an FP32 instruction
+        assert c["fp32"] == {"vort2d": 8.0, "vort3d_v2": 17.0}[key]
+        assert c["mufu"] == (1.0 if key == "vort2d" else 2.0)
+    cs.check_fast(fast)
+    k4 = (cs.SASS_KIND["direct"], "vort2d")
+    slow = cs.sass_fast(cs.sass_loops(_fast_listing({k4})))
+    assert slow[("direct", "vort2d")]["branches"] == {"BRA": 1, "CALL": 1}
+    assert slow[("exec", "vort2d")]["branches"] == {}
+    with pytest.raises(AssertionError, match="direct vort2d"):
+        cs.check_fast(slow)
+    more = dict(fast)
+    more[("exec_t2", "vort3d_v2")] = dict(fast[("exec_t2", "vort3d_v2")],
+                                          fp32=21.0)
+    with pytest.raises(AssertionError, match="exec_t2 vort3d_v2"):
+        cs.check_fast(more)
+    # the back edge alone is no slow path; a branch before it is
+    assert cs.loop_branches(["FADD", "MUFU.RCP", "BRA"]) == {}
+    assert cs.loop_branches(["FADD", "BRA.U", "FMUL", "BRA"]) == {"BRA": 1}
+    need = {**cs.PAIR_OPS, **cs.PAIR_OPS_V2}
+    assert all(cs.FAST_FP32[k] >= need[k][0] for k in cs.FAST_FP32)
+
+
+def test_sass_changed_names_the_functions_that_differ():
+    """sass_changed (--parent's list of the functions whose SASS differs
+    from the parent's): label numbers alone are no change; another
+    instruction, or a function the parent lacks, is."""
+    renumbered = LISTING.replace(".L_x_3", ".L_x_13").replace(".L_x_4",
+                                                              ".L_x_7")
+    assert cs.sass_changed(LISTING, renumbered) == []
+    other = LISTING.replace("FMUL R7, R6, R5", "FADD R7, R6, R5")
+    vort = [f for f in cs._sass_functions(LISTING) if "Vort2d" in f]
+    assert cs.sass_changed(LISTING, other) == vort
+    grav_only = LISTING[:LISTING.index("\t\tFunction : _ZN6onbody13direct")]
+    assert cs.sass_changed(grav_only, LISTING) == vort
+
+
+def test_parent_tree_times_and_gates_only_changed_kernels(monkeypatch,
+                                                          capsys):
+    """--parent: ParentTree.for_kernel keeps the parent for a kernel whose
+    SASS differs from this tree's and drops it (logged once) where it is
+    the same; the gate records a slower kernel only where the SASS
+    differs."""
+    tree = object.__new__(cs.ParentTree)
+    tree.sass, tree.sass_kind = LISTING, dict(cs.SASS_KIND)
+    tree.untimed, tree.slower = set(), []
+    other = LISTING.replace("FMUL R7, R6, R5", "FADD R7, R6, R5")
+    monkeypatch.setattr(cs, "_sass_text", lambda lib: other)
+    assert tree.for_kernel("direct", "vort2d") is tree
+    assert tree.for_kernel("exec", "grav3d") is None
+    assert tree.for_kernel("exec", "grav3d") is None
+    assert capsys.readouterr().out.count("not timed in turns") == 1
+    tree.gate("direct", "vort2d", "K4", [2.0, 2.1], [1.9, 2.0])
+    tree.gate("exec", "grav3d", "K1", [2.0, 2.1], [1.0, 1.0])
+    tree.gate("direct", "vort2d", "K4 faster", [1.0, 1.1], [1.9, 2.0])
+    assert tree.slower == ["K4"]
