@@ -2,10 +2,11 @@
 // thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk) of
 // contiguous global memory into shared memory, and the copy reports its
 // bytes to an mbarrier in shared memory that the readers wait on. The
-// K1/K2 and K8/K9 tile (and K4, direct.cuh): every thread copies single
-// floats with cp.async (4 bytes, so a copy can transpose a block into its
-// staged layout), commits them as one group per staged block and waits
-// until at most N groups are pending. Nothing else lives here: the host
+// K1/K2 and K8/K9 tile (and K4, direct.cuh; K1-f64, fp64.cuh, a double a
+// copy): every thread copies single floats with cp.async (4 bytes, so a
+// copy can transpose a block into its staged layout), commits them as
+// one group per staged block and waits until at most N groups are
+// pending. Nothing else lives here: the host
 // emulation of the sources (tests/test_torch_csrc_host.py) swaps this one
 // header for a synchronous version.
 //
@@ -74,6 +75,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void copy4_async(float* dst_smem,
                                             const float* src_gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst_smem)),
+               "l"(src_gmem)
+               : "memory");
+}
+
+// One double from global to shared memory, asynchronously (LDGSTS.64;
+// K1-f64, fp64.cuh).
+__device__ __forceinline__ void copy8_async(double* dst_smem,
+                                            const double* src_gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                    smem_u32(dst_smem)),
                "l"(src_gmem)
                : "memory");

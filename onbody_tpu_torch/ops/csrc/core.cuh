@@ -13,10 +13,12 @@
 // Vatistas (3D only). The 2D cores take d = t - s, sr^2 and tr^2 (both
 // cores need the radii; RM folds them into |d|^2 by FMA).
 //
-// K5 (vort2d's RM core) and K6-v2 (the Vatistas core) take their
-// reciprocal and square roots from mufu.cuh: one MUFU each, no IEEE
-// fix-up and no slow-path branch in the pair loop. Every other core keeps
-// the build's IEEE operations.
+// K5 (vort2d's RM core), K6-v2 (the Vatistas core) and the exponential
+// core take their per-pair reciprocals and square roots from mufu.cuh:
+// one MUFU each, no IEEE fix-up and no slow-path branch in the pair loop.
+// The 3D RM core keeps the build's rsqrtf, and the exponential core its
+// expf (its range reduction and MUFU.EX2, no branch) and its once-a-source
+// aux3.
 #pragma once
 
 #include "mufu.cuh"
@@ -54,28 +56,44 @@ struct CoreRm {
 };
 
 // Compact exponential (CoreFunc2d.hpp:85-103, CoreFunc3d.hpp:136-177).
+// Each reciprocal and square root of a pair is one MUFU (mufu.cuh), on
+// operands its guards keep normal: d3 = max(d^3, TINY), max(d^2, TINY),
+// d^2 + 1e-6 and max(sr^2 + tr^2, TINY) are at least 1e-30, and the
+// square root of d^2 reads a subnormal d^2 as 0 (d = 0 where the IEEE
+// form gives 1e-19 or less; d3 is TINY either way, and only the close
+// branch's bbb, -1.5 dist corefac^2, sees dist). The 2D core takes reld2
+// = corefac (d^2 + 1e-6), the reference's corefac * d^2
+// (onbody_tpu/ops/core_funcs.py:38) up to the 1e-6, for its corefac /
+// ood2: the two round differently by an ulp or two, and the MUFU's 1 ulp
+// (2^-22.9 relative for the square root) moves reld by as much, so a pair
+// within a few ulp of a threshold (reld 0.001 or 16) can take the other
+// branch, which differs by 5e-4 of its term at 0.001 and by exp(-16) at
+// 16. The reference's selects are kept: at d^2 = 0 the close branch
+// returns corefac whatever the others hold.
 struct CoreExp {
   __device__ static float aux3(float sr) {
     return 1.f / fmaxf(sr * sr * sr, kTiny);
   }
 
+  // MUFU.SQRT, MUFU.RCP and expf's MUFU.EX2
   __device__ static float c3(float d2, float corefac) {
-    const float dist = sqrtf(d2);
+    const float dist = sqrt_approx(d2);
     const float d3 = fmaxf(d2 * dist, kTiny);
-    const float ood3 = 1.f / d3;
+    const float ood3 = rcp_approx(d3);
     const float reld3 = d3 * corefac;
     const float mid = ood3 * (1.f - expf(-fminf(reld3, 87.f)));
     const float out = reld3 > 16.f ? ood3 : mid;
     return reld3 < 0.001f ? corefac : out;
   }
 
+  // MUFU.SQRT, 2 MUFU.RCP and expf's MUFU.EX2
   __device__ static void c3g(float d2, float corefac, float& r3,
                              float& bbb) {
-    const float dist = sqrtf(d2);
+    const float dist = sqrt_approx(d2);
     const float d3 = fmaxf(d2 * dist, kTiny);
     const float reld3 = d3 * corefac;
-    const float dm3 = 1.f / d3;
-    const float dm2 = 1.f / fmaxf(d2, kTiny);
+    const float dm3 = rcp_approx(d3);
+    const float dm2 = rcp_approx(fmaxf(d2, kTiny));
     const float e = expf(-fminf(reld3, 87.f));
     const float r3_mid = (1.f - e) * dm3;
     const bool far = reld3 > 16.f;
@@ -86,11 +104,12 @@ struct CoreExp {
                        : 3.f * (corefac * e - r3_mid) * dm2);
   }
 
+  // 2 MUFU.RCP and expf's MUFU.EX2
   __device__ static float c2(float dx, float dy, float sr2, float tr2) {
-    const float d2 = fmaf(dy, dy, dx * dx);
-    const float ood2 = 1.f / (d2 + 1e-6f);
-    const float corefac = 1.f / fmaxf(sr2 + tr2, kTiny);
-    const float reld2 = corefac / ood2;
+    const float d2e = fmaf(dy, dy, dx * dx) + 1e-6f;
+    const float ood2 = rcp_approx(d2e);
+    const float corefac = rcp_approx(fmaxf(sr2 + tr2, kTiny));
+    const float reld2 = corefac * d2e;
     const float mid = ood2 * (1.f - expf(-reld2));
     const float out = reld2 > 16.f ? ood2 : mid;
     return reld2 < 0.001f ? corefac : out;

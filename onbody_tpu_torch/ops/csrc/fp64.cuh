@@ -15,37 +15,102 @@
 // double once, which is exact.
 //
 // What bounds them: the pairs' FP64 operations (body64.cuh's header) over
-// the SMs' FP64 pipes (64 lanes an SM, half the FP32 lanes), and the
-// double rsqrt's MUFU.RSQ64H. Bytes are no limit: a staged block serves a
-// whole row of targets. The design is the simple one: one CTA per run
-// (K1-f64) or per (target tile, split) (K4-f64), each thread owning its
-// targets' sums in registers, each source block (chunk) staged
-// synchronously into shared memory as kRows double rows, then summed by
-// every thread. No ring, no asynchronous copies, no atomics and no
-// warp-level code, so the host emulation (tests/test_torch_csrc_host.py)
-// checks them as it checks the fp32 kernels. The order of sums is the
-// fp32 kernels': per target a block's (chunk's) partial in source order,
-// partials added in block order, K4-f64's splits added in split order
-// by the reduction, so two calls agree bit for bit.
+// the SMs' FP64 pipes (64 lanes an SM, half the FP32 lanes). Bytes are no
+// limit: a staged block serves a whole row of targets.
+//
+// K1-f64 is K1's tile (pairs.cuh exec_tile) in double. One CTA per run;
+// each thread owns kExec64Tgts = 2 target points of the row (i and i +
+// ceil(B/2)), so every source read from shared memory serves two
+// targets; each block is staged source by source (its kRows doubles
+// padded to whole 16-byte pairs, aos64), so a source comes in aos64 / 2
+// broadcast loads (LDS.128) for both; the staging is asynchronous, a
+// cp.async ring of kExec64Stages blocks copied a double at a time
+// (async_copy.cuh copy8_async), so the next block lands while the
+// current one is summed. The pairs take the RM core's double rsqrt and
+// reciprocal as one MUFU and Newton's steps (body64.cuh MufuF64,
+// mufu.cuh), with no range check and no slow-path call. CTAs of at most
+// kExec64Threads threads (a row of B 256 is one CTA of 128). A block's
+// pairs take far longer than its copy, so two stages hide it, and
+// against three they take a third less shared memory, so more CTAs fit
+// an SM (vort3d's 6, not 4).
+// K4-f64 is the simple design: one CTA per (target tile, split), two
+// targets a thread, each chunk staged synchronously as kRows double rows,
+// the library's rsqrt and division (IeeeF64).
+//
+// No atomics and no warp-level code, so the host emulation
+// (tests/test_torch_csrc_host.py, which swaps async_copy.cuh for
+// synchronous copies) checks them as it checks the fp32 kernels. The
+// order of sums is the fp32 kernels': per target a block's (chunk's)
+// partial in source order, partials added in block order, K4-f64's
+// splits added in split order by the reduction, so two calls agree bit
+// for bit, and K1-f64 at a list's static capacity gives the trimmed
+// launch's bits.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "body64.cuh"
 
 namespace onbody {
 
-constexpr int kExec64Threads = 256;
+constexpr int kExec64Threads = 128;  // threads a CTA at most
+constexpr int kExec64Tgts = 2;       // target points a thread
+constexpr int kExec64Stages = 2;     // blocks in flight a CTA
 
-// Threads per CTA, CTAs per row (the grid's y: one target point per
-// thread) and dynamic shared memory (one staged block, kRows x B doubles)
-// of a K1-f64 launch at B.
+// Doubles a source takes in K1-f64's staged layout: its kRows values side
+// by side, padded to whole 16-byte pairs.
+template <class Body>
+__host__ __device__ constexpr int aos64() {
+  return (Body::kRows + 1) / 2 * 2;
+}
+
+// Threads per CTA, CTAs per row (the grid's y: a row needs ceil(B / 2)
+// threads) and dynamic shared memory (the ring of kExec64Stages staged
+// blocks) of a K1-f64 launch at B.
 template <class Body>
 void exec64_config(int B, int* threads, int* grid_y, size_t* smem) {
-  *threads = B < kExec64Threads ? B : kExec64Threads;
-  *grid_y = (B + *threads - 1) / *threads;
-  *smem = sizeof(double) * Body::kRows * B;
+  const int nthr = (B + kExec64Tgts - 1) / kExec64Tgts;
+  *threads = nthr < kExec64Threads ? nthr : kExec64Threads;
+  *grid_y = (nthr + *threads - 1) / *threads;
+  *smem = sizeof(double) * kExec64Stages * B * aos64<Body>();
+}
+
+// The pair loop of K1-f64: the B sources of a block staged source by
+// source (aos64 doubles each, 16-byte aligned) against kN targets, each
+// target's block partial in source order added onto acc once.
+template <class Body, int kN>
+__device__ __forceinline__ void block64(const double* __restrict__ sm, int n,
+                                        const typename Body::Tgt (&t)[kN],
+                                        double (&acc)[kN][Body::kOut]) {
+  constexpr int kVec = aos64<Body>() / 2;
+  double part[kN][Body::kOut];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) part[k][o] = 0.0;
+  }
+  for (int q = 0; q < n; ++q) {
+    const double2* p = reinterpret_cast<const double2*>(sm) + q * kVec;
+    double v[2 * kVec];
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      const double2 f = p[c];
+      v[2 * c] = f.x;
+      v[2 * c + 1] = f.y;
+    }
+    const typename Body::Src s = Body::load_src(v, 1);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      Body::template pair<MufuF64>(s, t[k], part[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[k][o] += part[k][o];
+  }
 }
 
 // K1-f64: CTA `run` sums the blocks of its run's steps, slot by slot (id
@@ -63,39 +128,76 @@ __global__ void __launch_bounds__(kExec64Threads)
                 const int* __restrict__ n_runs_dev, int B, int C, int G,
                 int od8) {
   extern __shared__ __align__(16) float smem_raw[];
-  double* sm = reinterpret_cast<double*>(smem_raw);  // row r at sm + r * B
+  double* ring = reinterpret_cast<double*>(smem_raw);  // kExec64Stages blocks
+  constexpr int kAos = aos64<Body>();
+  constexpr int kN = kExec64Tgts;
   const int run = blockIdx.x;
   if (n_runs_dev != nullptr && run >= *n_runs_dev) return;  // past the list
   const int64_t row = run_tgt[run];
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;  // the target point
-  typename Body::Tgt t{};
-  if (i < B) t = Body::load_tgt(tgt_geo + row * 8 * B + i, B);
-  double acc[Body::kOut];
-  for (int o = 0; o < Body::kOut; ++o) acc[o] = 0.0;
-  const int64_t q_end = (int64_t)run_off[run + 1] * G;
-  for (int64_t q = (int64_t)run_off[run] * G; q < q_end; ++q) {
-    const int id = pair_s[q];  // uniform across the CTA
-    if (id == 0) continue;
-    const double* blk = src_fm + (int64_t)id * C * B;
-    __syncthreads();  // the previous block is read
-    for (int r = 0; r < Body::kRows; ++r) {
-      for (int s = threadIdx.x; s < B; s += blockDim.x) {
-        sm[r * B + s] = Body::staged(r, blk[r * B + s]);
-      }
+  const int nthr = (B + kN - 1) / kN;
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;  // points i + k nthr
+  typename Body::Tgt t[kN];
+  double acc[kN][Body::kOut];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int pt = i + k * nthr;
+    t[k] = typename Body::Tgt{};
+    if (i < nthr && pt < B) {
+      t[k] = Body::load_tgt(tgt_geo + row * 8 * B + pt, B);
     }
-    __syncthreads();
-    if (i < B) {
-      double part[Body::kOut];
-      for (int o = 0; o < Body::kOut; ++o) part[o] = 0.0;
-      for (int s = 0; s < B; ++s) {
-        Body::pair(Body::load_src(sm + s, B), t, part);
-      }
-      for (int o = 0; o < Body::kOut; ++o) acc[o] += part[o];
-    }
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) acc[k][o] = 0.0;
   }
-  if (i >= B) return;
-  double* o0 = out + row * od8 * B + i;
-  for (int o = 0; o < Body::kOut; ++o) o0[o * B] += acc[o];
+  // the run's slots in order, id 0 skipped: q_rd the block to sum next,
+  // q_wr the next to copy; uniform across the CTA
+  const int64_t q_end = (int64_t)run_off[run + 1] * G;
+  auto settle = [&](int64_t q) {
+    while (q < q_end && pair_s[q] == 0) ++q;
+    return q;
+  };
+  int64_t q_rd = settle((int64_t)run_off[run] * G), q_wr = q_rd;
+  auto issue = [&](int f) {  // the block at q_wr into stage f % stages
+    if (q_wr < q_end) {
+      const double* blk = src_fm + (int64_t)pair_s[q_wr] * C * B;
+      double* st = ring + (f % kExec64Stages) * B * kAos;
+#pragma unroll
+      for (int r = 0; r < Body::kRows; ++r) {
+        for (int q = threadIdx.x; q < B; q += blockDim.x) {
+          copy8_async(st + q * kAos + r, blk + r * B + q);
+        }
+      }
+      q_wr = settle(q_wr + 1);
+    }
+    copy_commit();  // one group per block, empty past the end
+  };
+  for (int f = 0; f < kExec64Stages - 1; ++f) issue(f);
+  for (int f = 0; q_rd < q_end; ++f) {
+    issue(f + kExec64Stages - 1);  // its stage was read in iteration f - 1
+    copy_wait<kExec64Stages - 1>();  // block f has landed
+    __syncthreads();
+    double* st = ring + (f % kExec64Stages) * B * kAos;
+    if (!Body::kRawStage) {  // restage the rows whose staged value differs
+      for (int q = threadIdx.x; q < B; q += blockDim.x) {
+#pragma unroll
+        for (int r = 0; r < Body::kRows; ++r) {
+          st[q * kAos + r] = Body::staged(r, st[q * kAos + r]);
+        }
+      }
+      __syncthreads();
+    }
+    if (i < nthr) block64<Body, kN>(st, B, t, acc);
+    __syncthreads();  // the block is read
+    q_rd = settle(q_rd + 1);
+  }
+  if (i >= nthr) return;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int pt = i + k * nthr;
+    if (pt >= B) continue;
+    double* o0 = out + row * od8 * B + pt;
+#pragma unroll
+    for (int o = 0; o < Body::kOut; ++o) o0[o * B] += acc[k][o];
+  }
 }
 
 template <class Body>

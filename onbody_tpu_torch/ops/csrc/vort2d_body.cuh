@@ -10,7 +10,16 @@
 // FP32-pipe operations and 1 MUFU: 2 FADD for d, 1 FADD for sr^2 + tr^2,
 // 2 FFMA for |d|^2 + that, 1 FMUL for ss * rcp, 2 FFMA into the sums, and
 // the reciprocal; the two pipes take the same time. CoreRm::c2 issues
-// just that (core.cuh): the FMA chain and one MUFU.RCP.
+// just that (core.cuh): the FMA chain and one MUFU.RCP. With the
+// exponential core (CoreExp, ops/core_funcs.py:exp_2d) a pair needs 21
+// FP32-pipe operations and 3 MUFU: 2 FADD for d, 2 for |d|^2, 1 FADD for
+// |d|^2 + 1e-6, 1 FADD and 1 FMNMX for max(sr^2 + tr^2, TINY), 1 FMUL for
+// reld2, expf's range reduction (5) and 1 FFMA for 1 - e with its
+// product by 2^n (vort3d_body.cuh), 1 FMUL for ood2 (1 - e) (far keeps
+// ood2: a predicated write), 2 FSETP for the thresholds and 1 FSEL for
+// the close branch, 1 FMUL for ss c and 2 FFMA into the sums; two
+// reciprocals and expf's EX2: bound by the MUFU rate, 3 / 16 against 21 /
+// 128 a lane.
 #pragma once
 
 #include "body.cuh"

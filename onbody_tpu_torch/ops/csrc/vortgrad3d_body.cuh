@@ -14,7 +14,18 @@
 // RM core a pair needs 37 FP32-pipe operations and 1 MUFU: 3 FADD for d,
 // 3 FFMA for |d|^2 + sr^2, 4 FMUL for r3 and bbb, 6 for o, 3 FFMA into
 // vel, 3 FMUL for bbb o_a, 9 FFMA into A, 6 FFMA for the epsilon terms,
-// and the rsqrt; bound by the FP32 rate.
+// and the rsqrt; bound by the FP32 rate. With the exponential core
+// (CoreExp, ops/core_funcs.py:exp_3d_grads) a pair needs 56 FP32-pipe
+// operations and 4 MUFU: 3 FADD for d, 3 for |d|^2, 1 FMUL and 1 FMNMX
+// for d3, 1 FMUL for reld3, 1 FMNMX for max(|d|^2, TINY), 1 FMNMX for
+// min(reld3, 87), expf's range reduction (5, vort3d_body.cuh) and its
+// FMUL by 2^n (e is used twice), 1 FADD and 1 FMUL for r3_mid (far keeps
+// dm3: a predicated write), 2 FSETP for the thresholds and 1 FSEL for
+// r3's close branch, 7 for bbb (3 FMUL close, 1 far, an FFMA and an FMUL
+// mid, and one FMUL by dm2 for far and mid alike, the branches taken by
+// predicated writes), 6 for o, 3 FFMA into vel, 3 FMUL for bbb o_a, 9
+// FFMA into A and 6 FFMA for the epsilon terms; the sqrt, two
+// reciprocals and expf's EX2.
 #pragma once
 
 #include "body.cuh"

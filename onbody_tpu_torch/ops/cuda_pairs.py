@@ -744,12 +744,13 @@ def exec_pairs64_cuda(kernel: Kernel, tgt_geo, src_fm, group_t, group_s,
     exec_pairs_jnp, to which every fetch goes at accum_dtype=float64
     (exec.py:151-152), standing where onbody_tpu/ops/pallas_pairs.py:
     _exec_chunk (:623) stands in fp32. d, |d|^2, the core and the sums
-    are double. One CTA per run of a target row, one target point per
-    thread, each source block staged synchronously into shared memory
-    as double rows and summed by every thread into its partial, the
-    partials added in block order onto the row once (csrc/fp64.cuh).
-    Bound by the pairs' FP64 operations (64 FP64 lanes an SM) and the
-    double rsqrt."""
+    are double. K1's tile in double (csrc/fp64.cuh): one CTA per run of
+    a target row, two target points per thread, the source blocks
+    staged source by source through a cp.async ring of 2, each summed by
+    every thread into its partials, the partials added in block order
+    onto the row once; the RM core's rsqrt and reciprocal one MUFU and
+    Newton's steps. Bound by the pairs' FP64 operations (64 FP64 lanes
+    an SM)."""
     if tgt_geo.device.type == "cpu":
         return exec_pairs_torch(kernel, tgt_geo, src_fm, group_t, group_s,
                                 out_fm, final, core, torch.float64)

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from onbody_tpu.ops import core_funcs as JC
 from onbody_tpu.ops import kernels as JK
 from onbody_tpu.ops import pallas_pairs as jpp
 from onbody_tpu_torch.ops import cuda_direct, cuda_lib, cuda_pairs
@@ -69,6 +70,9 @@ static dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim(1, 1, 1),
     gridDim(1, 1, 1);
 struct float4 {
   float x, y, z, w;
+};
+struct double2 {
+  double x, y;
 };
 alignas(16) static float host_dyn_smem[1 << 16];
 inline void __syncthreads() {}
@@ -120,12 +124,15 @@ template <class... A> HostLaunch<A...> host_launch(void (*k)(A...), int g,
                                                    int t) {
   return HostLaunch<A...>{k, (unsigned)(g * t), 1u};
 }
-// csrc/mufu.cuh's one-MUFU operations (the file is swapped for an empty
-// header): exact division and square root, the twins' arithmetic
+// csrc/mufu.cuh's one-MUFU operations and K1-f64's double rsqrt and
+// reciprocal (the file is swapped for an empty header): exact division
+// and square root, the twins' arithmetic
 namespace onbody {
 inline float rcp_approx(float x) { return 1.0f / x; }
 inline float rsqrt_approx(float x) { return 1.0f / sqrtf(x); }
 inline float sqrt_approx(float x) { return sqrtf(x); }
+inline double rsqrt_f64(double x) { return 1.0 / sqrt(x); }
+inline double rcp_f64(double x) { return 1.0 / x; }
 }  // namespace onbody
 """
 
@@ -151,6 +158,7 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   if ((*bar & 1u) == parity) abort();
 }
 inline void copy4_async(float* dst, const float* src) { *dst = *src; }
+inline void copy8_async(double* dst, const double* src) { *dst = *src; }
 inline void copy_commit() {}
 template <int kPending> inline void copy_wait() {}
 }  // namespace onbody
@@ -159,6 +167,19 @@ template <int kPending> inline void copy_wait() {}
 HOST_EXPORTS = r"""
 extern "C" int host_copy_blocks(const int* ids, int j, int g) {
   return onbody::copy_blocks(ids, j, g);
+}
+// the exp core (csrc/core.cuh CoreExp) on n points: which 0, c3(a = d^2,
+// aux3(b = sr)); 1, c3g (r3 into out, bbb into out2); 2, c2(a = dx, b =
+// dy, c = sr^2, d = tr^2)
+extern "C" void host_core_exp(int which, int n, const float* a,
+                              const float* b, const float* c,
+                              const float* d, float* out, float* out2) {
+  using onbody::CoreExp;
+  for (int i = 0; i < n; ++i) {
+    if (which == 0) out[i] = CoreExp::c3(a[i], CoreExp::aux3(b[i]));
+    if (which == 1) CoreExp::c3g(a[i], CoreExp::aux3(b[i]), out[i], out2[i]);
+    if (which == 2) out[i] = CoreExp::c2(a[i], b[i], c[i], d[i]);
+  }
 }
 """
 
@@ -1032,35 +1053,109 @@ def _f64_errors(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+# (block width, seed, target keys, group) of K1-f64's cases: B 32; the
+# ragged B 577 (289 threads of two points, three CTAs of 128, the last
+# thread one point); B 33 (17 threads, the last one point); a run of 9
+# steps of 4 slots that wraps the 2-stage ring (slots of id 0 inside it)
+K1_F64_CASES = {
+    "b32": (32, 0, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0], 8),
+    "b577": (RAGGED_B, 30, [3, 0, 5, 5, 9, 0], 4),
+    "b33": (33, 5, [2, 2, 0, 7, 0, 4, 4, 4], 8),
+    "wrap": (32, 9, [0, 6] + [11] * 9 + [0, 3, 3], 4)}
+
+
+@pytest.mark.parametrize("case", list(K1_F64_CASES))
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_host_k1_f64_matches_twin(host_lib, name, core):
-    """K1-f64 at B 32 and at the ragged B 577 (three CTAs of 256 targets
-    per row), on double rows: the float64 twin's sums within
-    F64_MAX_REL, rows without a run untouched; launched as the fused
-    solve launches it (the list at its capacity, the count read by the
-    kernel), the trimmed launch's output bit for bit."""
+def test_host_k1_f64_matches_twin(host_lib, name, core, case):
+    """K1-f64 on K1_F64_CASES, on double rows: the float64 twin's sums
+    within F64_MAX_REL, rows without a run untouched; launched as the
+    fused solve launches it (the list at its capacity, the count read by
+    the kernel), the trimmed launch's output bit for bit."""
     kernel = get_kernel(name)
-    for b, seed, gt_list, group in (
-            (32, 0, [3, 3, 0, 5, 1, 1, 1, 0, 9, 0], 8),
-            (RAGGED_B, 30, [3, 0, 5, 5, 9, 0], 4)):
-        src_fm, tgt_geo = (a.double() for a in _blocks(kernel, b=b,
-                                                       seed=seed))
-        gt, gs = _ragged_groups(gt_list, seed + 1, group)
-        out = torch.zeros((16, cuda_pairs.od8(kernel), b),
-                          dtype=torch.float64)
-        capped = out.clone()
-        assert _run_exec(host_lib, "exec64", kernel, core, tgt_geo, src_fm,
-                         gt, gs, out) == 0
-        twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
-                                           final=False, core=core)
-        assert torch.isfinite(out).all()
-        assert _f64_errors(out, twin) <= F64_MAX_REL, b
-        assert not out[torch.tensor([r for r in range(16)
-                                     if r not in gt_list])].any()
-        cgt, cgs = _front_packed(gt, gs, int((gt != 0).sum()))
-        assert _run_capped(host_lib, "exec64", kernel, core, tgt_geo,
-                           src_fm, cgt, cgs, capped) == 0
-        assert torch.equal(capped, out)
+    b, seed, gt_list, group = K1_F64_CASES[case]
+    src_fm, tgt_geo = (a.double() for a in _blocks(kernel, b=b,
+                                                   seed=seed))
+    gt, gs = _ragged_groups(gt_list, seed + 1, group)
+    out = torch.zeros((16, cuda_pairs.od8(kernel), b), dtype=torch.float64)
+    capped = out.clone()
+    assert _run_exec(host_lib, "exec64", kernel, core, tgt_geo, src_fm,
+                     gt, gs, out) == 0
+    twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo, src_fm, gt, gs,
+                                       final=False, core=core)
+    assert torch.isfinite(out).all()
+    assert _f64_errors(out, twin) <= F64_MAX_REL
+    assert not out[torch.tensor([r for r in range(16)
+                                 if r not in gt_list])].any()
+    cgt, cgs = _front_packed(gt, gs, int((gt != 0).sum()))
+    assert _run_capped(host_lib, "exec64", kernel, core, tgt_geo,
+                       src_fm, cgt, cgs, capped) == 0
+    assert torch.equal(capped, out)
+
+
+# distances over the core radius on both sides of the exp core's
+# thresholds (reld 0.001 at d = 0.1 sr in 3D, 16 at 2.52 sr; 2D: d^2 + 1e-6
+# = 0.001 and 16 times sr^2 + tr^2), each at least 0.3% from it, and d = 0
+EXP_RATIOS = np.array([0.0, 0.03, 0.0997, 0.1003, 0.4, 1.0, 2.51, 2.53,
+                       4.0, 30.0])
+EXP_RATIOS_2D = np.array([0.0, 3e-4, 0.000997, 0.001003, 0.05, 1.0, 15.95,
+                          16.05, 40.0, 900.0])
+
+
+def _f32(x):
+    return np.ascontiguousarray(np.asarray(x, np.float64).astype(np.float32))
+
+
+def _core_exp(lib, which, a, b, c=None, d=None):
+    n = a.shape[0]
+    out, out2 = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    c = a if c is None else c
+    d = a if d is None else d
+    ptr = lambda v: v.ctypes.data_as(ctypes.c_void_p)
+    lib.host_core_exp(ctypes.c_int(which), ctypes.c_int(n), ptr(a), ptr(b),
+                      ptr(c), ptr(d), ptr(out), ptr(out2))
+    return out, out2
+
+
+@pytest.mark.parametrize("which", ["c3", "c3g", "c2"])
+def test_host_exp_core_matches_reference(host_lib, which):
+    """The exp core (csrc/core.cuh CoreExp, its MUFU operations as
+    HOST_STUB's exact forms) against the reference's exp_3d, exp_3d_grads
+    and exp_2d (onbody_tpu/ops/core_funcs.py) on points made in float64
+    from a numpy seed and cast to float32: d = 0, and on both sides of
+    reld = 0.001 and 16; each value within 2e-6 of the reference's,
+    relative (a pair across reld = 0.001 from the reference's branch
+    would differ by 5e-4)."""
+    rng = np.random.default_rng(18)
+    sr = rng.uniform(0.01, 0.2, (4, 1))
+    if which == "c2":
+        tr = rng.uniform(0.0, 0.2, (4, 1))
+        s2 = sr * sr + tr * tr
+        d2 = np.maximum(EXP_RATIOS_2D * s2 - 1e-6, 0.0)
+        d2[:, 0] = 0.0
+        ang = rng.uniform(0.0, 2 * np.pi, d2.shape)
+        dx, dy = (_f32(np.sqrt(d2) * np.cos(ang)).ravel(),
+                  _f32(np.sqrt(d2) * np.sin(ang)).ravel())
+        srf = _f32(np.broadcast_to(sr, d2.shape)).ravel()
+        trf = _f32(np.broadcast_to(tr, d2.shape)).ravel()
+        got, _ = _core_exp(host_lib, 2, dx, dy, srf * srf, trf * trf)
+        ref = np.asarray(JC.exp_2d(jnp.asarray(dx * dx + dy * dy),
+                                   jnp.asarray(srf), jnp.asarray(trf)))
+        refs, gots = [ref], [got]
+    else:
+        d2 = (EXP_RATIOS * sr) ** 2
+        d2f = _f32(d2).ravel()
+        srf = _f32(np.broadcast_to(sr, d2.shape)).ravel()
+        got, got2 = _core_exp(host_lib, 0 if which == "c3" else 1, d2f, srf)
+        if which == "c3":
+            refs = [np.asarray(JC.exp_3d(jnp.asarray(d2f), jnp.asarray(srf)))]
+            gots = [got]
+        else:
+            r3, bbb = JC.exp_3d_grads(jnp.asarray(d2f), jnp.asarray(srf))
+            refs, gots = [np.asarray(r3), np.asarray(bbb)], [got, got2]
+    for g, r in zip(gots, refs):
+        assert g.dtype == r.dtype == np.float32
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=2e-6, atol=0.0)
 
 
 @pytest.mark.parametrize("m,s,splits", K4_CASES,

@@ -398,21 +398,24 @@ def test_kernels_refuse_bad_lists(dev):
                                    gs, core="v2")
 
 
-# the cores whose reciprocal and square roots are one MUFU each
-# (csrc/mufu.cuh): K5 (vort2d's RM core) and K6-v2 (vort3d's v2 core);
-# the front door's fetch of each executor kind on them
-ONE_MUFU = [("vort2d", "rm"), ("vort3d", "v2")]
+# the cores whose reciprocals and square roots are one MUFU each
+# (csrc/mufu.cuh): K5 (vort2d's RM core), K6-v2 (vort3d's v2 core) and
+# the exp core of each vortex body; the front door's fetch of each
+# executor kind on them
+ONE_MUFU = [("vort2d", "rm"), ("vort3d", "v2"), ("vort2d", "exp"),
+            ("vort3d", "exp"), ("vortgrad3d", "exp")]
 ONE_MUFU_FETCH = {"exec": "dma_i", "exec_t2": "dma_i",
                   "exec_pre_seg": "pregather",
                   "exec_pre_t2_seg": "pregather", "exec_dma": "dma",
                   "exec_dmap": "dma_p", "exec_static": "static"}
 
 
-def _edge_points(kernel, nn=16, b=B, seed=7):
+def _edge_points(kernel, core, nn=16, b=B, seed=7):
     """Points at the one-MUFU cores' edges, (pos, source radii, target
     radii, strengths) as blocks: every source also a target (d2 = 0 on a
     block against itself), the inert row 0; vort2d's target radii 0,
-    vort3d's every other source radius 0 (the v2 guard at d2 = 0)."""
+    with the v2 core every other source radius 0 (its guard at d2 =
+    0)."""
     g = torch.Generator().manual_seed(seed)
     pos = torch.rand((nn, b, kernel.pd), generator=g)
     rad = 0.03 + 0.04 * torch.rand((nn, b), generator=g)
@@ -421,7 +424,7 @@ def _edge_points(kernel, nn=16, b=B, seed=7):
     trad = rad.clone()
     if kernel.name == "vort2d":
         trad[1:] = 0.0
-    else:
+    elif core == "v2":
         rad[1:, ::2] = 0.0
     return pos, rad, trad, s
 
@@ -430,13 +433,13 @@ def _edge_points(kernel, nn=16, b=B, seed=7):
 @pytest.mark.parametrize("name,core", ONE_MUFU,
                          ids=[f"{k}-{c}" for k, c in ONE_MUFU])
 def test_one_mufu_cores_at_their_edges(dev, name, core, kind):
-    """K1, K2, K8-K12 through the front door and K4, with K5 and K6-v2,
-    on _edge_points with a self pair in every step: finite where the
-    twin is, within chip_smoke.py's kernel limits of it (1e-5 rel-RMS,
-    1e-4 max-rel), one launch at least, the inert row 0 (and K2's root
-    row 1) untouched."""
+    """K1, K2, K8-K12 through the front door and K4, with K5, K6-v2 and
+    the exp cores, on _edge_points with a self pair in every step: finite
+    where the twin is, within chip_smoke.py's kernel limits of it (1e-5
+    rel-RMS, 1e-4 max-rel), one launch at least, the inert row 0 (and
+    K2's root row 1) untouched."""
     kernel = get_kernel(name)
-    pos, rad, trad, s = _edge_points(kernel)
+    pos, rad, trad, s = _edge_points(kernel, core)
     inst = cuda_lib.instance(name, core)
     before = cuda_pairs.LAUNCHES[(kind, inst)] + cuda_direct.LAUNCHES[
         (kind, inst)]
@@ -1164,33 +1167,46 @@ def _f64_rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+# (block width, target keys) of K1-f64's cases: B 128; a run of 12 steps
+# that wraps its 2-stage ring again and again; the ragged B 577 (289
+# threads of two points, three CTAs of 128, the last thread one point)
+K1_F64_CASES = {"b128": (B, [1, 1, 2, 3, 3, 0, 5, 0]),
+                "wrap": (B, [2] + [6] * 12 + [0, 9]),
+                "b577": (577, [3, 0, 5, 5, 9, 0])}
+
+
+@pytest.mark.parametrize("case", list(K1_F64_CASES))
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
-def test_k1_f64_matches_twin(dev, name, core):
-    """K1-f64 on double rows against its float64 twin on the CPU within
-    F64_MAX_REL; fp32 rows promoted by the wrapper give the same bits;
-    every fetch of the front door runs it on double rows; at static
-    capacity (the fused solve's launch) the trimmed launch's bits."""
+def test_k1_f64_matches_twin(dev, name, core, case):
+    """K1-f64 on double rows (K1_F64_CASES) against its float64 twin on
+    the CPU within F64_MAX_REL; two calls bit for bit; fp32 rows promoted
+    by the wrapper give the same bits; every fetch of the front door runs
+    it on double rows; at static capacity (the fused solve's launch) the
+    trimmed launch's bits."""
     kernel = get_kernel(name)
-    src32, geo32 = _blocks(dev, kernel)
+    b, keys = K1_F64_CASES[case]
+    src32, geo32 = _blocks(dev, kernel, b=b)
     src_fm, tgt_geo = src32.double(), geo32.double()
-    gt, gs = _groups(dev, [1, 1, 2, 3, 3, 0, 5, 0])
+    gt, gs = _groups(dev, keys)
     inst = cuda_lib.instance(name, core)
     before = cuda_pairs.LAUNCHES[("exec64", inst)]
     got = cuda_pairs.exec_pairs64_cuda(kernel, tgt_geo, src_fm, gt, gs,
                                        final=False, core=core)
+    again = cuda_pairs.exec_pairs64_cuda(kernel, tgt_geo, src_fm, gt, gs,
+                                         final=False, core=core)
     promoted = cuda_pairs.exec_pairs64_cuda(kernel, geo32, src32, gt, gs,
                                             final=False, core=core)
     fetched = [cuda_pairs.exec_pairs(kernel, tgt_geo, src_fm, gt, gs, core,
                                      fetch=f, final=False)
                for f in ("pregather", "dma", "static")]
     torch.cuda.synchronize()
-    assert cuda_pairs.LAUNCHES[("exec64", inst)] == before + 5
+    assert cuda_pairs.LAUNCHES[("exec64", inst)] == before + 6
     twin = cuda_pairs.exec_pairs_torch(kernel, tgt_geo.cpu(), src_fm.cpu(),
                                        gt.cpu(), gs.cpu(), final=False,
                                        core=core)
     assert got.dtype == torch.float64
     assert _f64_rel(got, twin) <= F64_MAX_REL
-    assert all(torch.equal(o, got) for o in [promoted] + fetched)
+    assert all(torch.equal(o, got) for o in [again, promoted] + fetched)
     keys = torch.cat([gt[gt != 0], gt.new_zeros(24)])
     steps = torch.cat([gs[gt != 0], gs.new_zeros((24, gs.shape[1]))])
     checks = cuda_pairs.RunChecks()

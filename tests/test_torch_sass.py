@@ -210,6 +210,19 @@ def test_kernel_sass_compares_code_not_label_numbers():
         cs._kernel_sass(LISTING, "exec_t2", "grav3d")
 
 
+@pytest.mark.parametrize("name", ["vort3d", "vortgrad3d", "vort2d"])
+def test_exp_ops_match_body_header(name):
+    """The exp core's bounds read the per-pair operations counted for it
+    in each vortex body's header."""
+    text = (CSRC / f"{name}_body.cuh").read_text()
+    m = re.search(r"exponential core.*?needs[\s/]+(\d+)[\s/]+FP32-pipe"
+                  r"[\s/]+operations[\s/]+and[\s/]+(\d+)[\s/]+MUFU",
+                  text, re.S)
+    assert m is not None
+    assert ((int(m.group(1)), int(m.group(2)))
+            == cs.PAIR_OPS_EXP[f"{name}_exp"])
+
+
 def test_v2_ops_match_body_header():
     """K6-v2's bound reads the per-pair operations counted for the
     Vatistas core in vort3d_body.cuh."""
@@ -225,13 +238,15 @@ def test_v2_ops_match_body_header():
                                   "vort2d"])
 def test_f64_ops_match_body_header(name):
     """K1-f64's and K4-f64's bounds read the per-pair FP64 operations
-    listed in body64.cuh: the fp32 count plus the refinement's 5."""
+    listed in body64.cuh: the fp32 count plus the refinement's 5 (the
+    double rsqrt) or 3 (vort2d's double reciprocal)."""
     text = (CSRC / "body64.cuh").read_text()
     m = re.search(rf"//\s+{name}\s+(\d+) FP64-pipe operations and (\d+) "
                   r"MUFU", text)
     assert m is not None
     assert (int(m.group(1)), int(m.group(2))) == cs.PAIR_OPS64[name]
-    assert cs.PAIR_OPS64[name][0] == cs.PAIR_OPS[name][0] + cs.F64_NEWTON
+    newton = cs.F64_NEWTON["rcp" if name == "vort2d" else "rsqrt"]
+    assert cs.PAIR_OPS64[name][0] == cs.PAIR_OPS[name][0] + newton
 
 
 def test_f64_and_v2_bounds():
@@ -246,6 +261,17 @@ def test_f64_and_v2_bounds():
     assert cs.bound_name("vort3d", "v2") == "vort3d_v2"
     assert cs.bound_name("vort2d", f64=True) == "vort2d_f64"
     assert cs.bound_name("grav3d") == "grav3d"
+    # the exp core's counts; the fp64 exp and v2 cores are not counted
+    assert cs.bound_name("vortgrad3d", "exp") == "vortgrad3d_exp"
+    assert cs.bound_name("vort3d", "exp", f64=True) is None
+    assert cs.bound_name("vort3d", "v2", f64=True) is None
+    t, pipe = cs.bound_s(1e12, "vort3d_exp", 2e9)
+    assert pipe == "fp32"
+    assert t == pytest.approx(1e12 * 29 / (132 * 128 * 2e9))
+    # vort2d's exp core: 3 MUFU at 16 lanes outweigh 21 FP32 at 128
+    t, pipe = cs.bound_s(1e12, "vort2d_exp", 2e9)
+    assert pipe == "mufu"
+    assert t == pytest.approx(1e12 * 3 / (132 * 16 * 2e9))
 
 
 def test_per_pair_counts_fp64_and_v2_loops():
@@ -275,6 +301,19 @@ def test_per_pair_counts_fp64_and_v2_loops():
 # compiles without -ftz
 SLOW_PATH = ["FCHK P0, R7, R3", "BSSY B0, `(.L_x_5)",
              "@!P0 BRA `(.L_x_6)", "CALL.REL.NOINC `(.L_x_9)", "BSYNC B0"]
+# the exp core's pair but its FP32 work and its compares and selects: its
+# square root, reciprocal and expf's EX2 and exponent
+EXP_REST = ["MUFU.SQRT R10, R5", "MUFU.RCP R11, R5", "MUFU.EX2 R12, R5",
+            "SHF.L.U32 R13, R13, 0x17, RZ"]
+
+
+def _exp_selects(n: int) -> list:
+    """n compares and selects: a guard, the thresholds' compares, the
+    close branch's select."""
+    return (["FMNMX R5, R5, R6", "FSEL R7, R8, R9, P0"]
+            + ["FSETP.GT P0, R5, 16"] * (n - 2))
+
+
 FAST_BODIES = {"vort2d": ("6Vort2dINS_6CoreRmEE",
                           ["FADD R3, R2, -R4", "FADD R5, R6, -R7",
                            "FADD R8, R9, R10", "FFMA R11, R3, R3, R8",
@@ -290,42 +329,86 @@ FAST_BODIES = {"vort2d": ("6Vort2dINS_6CoreRmEE",
                                 "MUFU.RSQ R8, R6", "MUFU.SQRT R9, R8",
                                 "FMUL R8, R8, R9"]
                              + ["FMUL R10, R3, R3", "FFMA R10, R3, R3, R10"]
-                             * 3 + ["FFMA R11, R8, R10, R11"] * 3)}
+                             * 3 + ["FFMA R11, R8, R10, R11"] * 3),
+               # the exp core: FP32 work, its selects, and expf's EX2 once
+               **{f"{k}_exp": (f"{n}INS_7CoreExpEE",
+                               ["FADD R3, R2, -R4"] * f + _exp_selects(sel)
+                               + EXP_REST)
+                  for k, n, f, sel in (("vort3d", "6Vort3d", 24, 5),
+                                       ("vortgrad3d", "10Vortgrad3d", 50, 6),
+                                       ("vort2d", "6Vort2d", 17, 4))}}
+# K1-f64's RM pair loops: their FP64 work and the MUFU once a pair
+FAST_F64 = {"grav3d": ("9Grav3dF64E", "MUFU.RSQ64H", 17),
+            "vort3d": ("9Vort3dF64INS_9CoreRmF64EEE", "MUFU.RSQ64H", 22),
+            "vortgrad3d": ("13Vortgrad3dF64INS_9CoreRmF64EEE",
+                           "MUFU.RSQ64H", 42),
+            "vort2d": ("9Vort2dF64INS_9CoreRmF64EEE", "MUFU.RCP64H", 11)}
+
+
+def _fast_function(name: str, loop) -> list:
+    """One function as cuobjdump prints it: a loop of `loop`."""
+    out = [f"\t\tFunction : {name}",
+           "        /*0000*/                   MOV R2, RZ ;", ".L_x_3:"]
+    for i, op in enumerate(loop + ["@P1 BRA `(.L_x_3)", "EXIT"]):
+        out.append(f"        /*{(i + 1) * 16:04x}*/                   {op} ;")
+    return out
 
 
 def _fast_listing(slow=()) -> str:
-    """One function per pair-loop template (SASS_KIND) of K5 and K6-v2 as
-    cuobjdump prints them, each a loop of one pair; the (template
-    fragments, key) pairs in `slow` carry SLOW_PATH in their loop."""
+    """One function per pair-loop template (SASS_KIND) of K5, K6-v2 and
+    the exp cores, and K1-f64 of each RM body, as cuobjdump prints them,
+    each a loop of one pair; the (template fragments, key) pairs in
+    `slow` carry SLOW_PATH in their loop."""
     out = ["\tcode for sm_90a"]
     for frag in sorted(set(cs.SASS_KIND.values())):
         for key, (body, ops) in FAST_BODIES.items():
             tail = frag[1] if len(frag) > 1 else "E"
-            out.append(f"\t\tFunction : _ZN6onbody{frag[0]}INS_{body}"
-                       f"{tail}EvPKfS3_Pfii")
             loop = ops + (SLOW_PATH if (frag, key) in slow else [])
-            out.append("        /*0000*/                   MOV R2, RZ ;")
-            out.append(".L_x_3:")
-            for i, op in enumerate(loop + ["@P1 BRA `(.L_x_3)", "EXIT"]):
-                out.append(f"        /*{(i + 1) * 16:04x}*/"
-                           f"                   {op} ;")
+            out += _fast_function(f"_ZN6onbody{frag[0]}INS_{body}{tail}"
+                                  "EvPKfS3_Pfii", loop)
+    for name, (body, sig, n) in FAST_F64.items():
+        loop = ["DFMA R4, R2, R2, R4"] * n + [f"{sig} R5, R4"]
+        loop += SLOW_PATH if ("exec64", name) in slow else []
+        out += _fast_function(f"_ZN6onbody11exec64_runsINS_{body}EEvPKdS3_"
+                              "PdPKiS6_S6_S6_iiii", loop)
     return "\n".join(out) + "\n"
 
 
 def test_fast_cores_pair_loops_have_no_slow_path():
-    """sass_fast / check_fast: every pair loop of K5 (vort2d, RM) and
-    K6-v2 (vort3d, v2) read per kind; one with a division's slow path (a
-    call and the jump around it, beside the back edge) or more FP32 a
-    pair than FAST_FP32 fails the check."""
+    """sass_fast / check_fast: every pair loop of K5 (vort2d, RM), K6-v2
+    (vort3d, v2) and the exp cores read per kind, and K1-f64's of each RM
+    body; one with a division's slow path (a call and the jump around
+    it, beside the back edge), more FP32 a pair than FAST_FP32 (FP64
+    than PAIR_OPS64), or fewer FP32 (FP64) or compares and selects than
+    the bound counts as needed fails the check."""
     fast = cs.sass_fast(cs.sass_loops(_fast_listing()))
     assert set(fast) == {(k, key) for k in cs.SASS_KIND
-                         for key in FAST_BODIES}
+                         for key in FAST_BODIES} | {
+        ("exec64", f"{name}_f64") for name in FAST_F64}
+    fp32 = {"vort2d": 8.0, "vort3d_v2": 17.0, "vort3d_exp": 24.0,
+            "vortgrad3d_exp": 50.0, "vort2d_exp": 17.0}
+    selects = {"vort2d": 0.0, "vort3d_v2": 1.0, "vort3d_exp": 5.0,
+               "vortgrad3d_exp": 6.0, "vort2d_exp": 4.0}
     for (kind, key), c in fast.items():
         assert c["branches"] == {}
+        if kind == "exec64":
+            assert c["fp64"] == FAST_F64[key[:-4]][2] and c["mufu"] == 1.0
+            continue
         # K6-v2's guard is an FMNMX, not an FP32 instruction
-        assert c["fp32"] == {"vort2d": 8.0, "vort3d_v2": 17.0}[key]
-        assert c["mufu"] == (1.0 if key == "vort2d" else 2.0)
+        assert c["fp32"] == fp32[key] and c["selects"] == selects[key]
+        assert c["mufu"] == {"vort2d": 1.0, "vort3d_v2": 2.0}.get(key, 3.0)
     cs.check_fast(fast)
+    slow = cs.sass_fast(cs.sass_loops(_fast_listing({("exec64",
+                                                      "vort2d")})))
+    assert slow[("exec64", "vort2d_f64")]["branches"] == {"BRA": 1,
+                                                           "CALL": 1}
+    with pytest.raises(AssertionError, match="exec64 vort2d_f64"):
+        cs.check_fast(slow)
+    more = dict(fast)
+    more[("exec64", "grav3d_f64")] = dict(fast[("exec64", "grav3d_f64")],
+                                          fp64=18.0)
+    with pytest.raises(AssertionError, match="exec64 grav3d_f64"):
+        cs.check_fast(more)
     k4 = (cs.SASS_KIND["direct"], "vort2d")
     slow = cs.sass_fast(cs.sass_loops(_fast_listing({k4})))
     assert slow[("direct", "vort2d")]["branches"] == {"BRA": 1, "CALL": 1}
@@ -337,11 +420,25 @@ def test_fast_cores_pair_loops_have_no_slow_path():
                                           fp32=21.0)
     with pytest.raises(AssertionError, match="exec_t2 vort3d_v2"):
         cs.check_fast(more)
+    # a loop that issues less than its bound counts as needed fails: the
+    # count would be too high
+    for field, value in (("fp32", 23.0), ("selects", 4.0)):
+        fewer = dict(fast)
+        fewer[("exec", "vort3d_exp")] = dict(fast[("exec", "vort3d_exp")],
+                                             **{field: value})
+        with pytest.raises(AssertionError, match="exec vort3d_exp"):
+            cs.check_fast(fewer)
+    fewer = dict(fast)
+    fewer[("exec64", "vort3d_f64")] = dict(fast[("exec64", "vort3d_f64")],
+                                           fp64=21.0)
+    with pytest.raises(AssertionError, match="exec64 vort3d_f64"):
+        cs.check_fast(fewer)
     # the back edge alone is no slow path; a branch before it is
     assert cs.loop_branches(["FADD", "MUFU.RCP", "BRA"]) == {}
     assert cs.loop_branches(["FADD", "BRA.U", "FMUL", "BRA"]) == {"BRA": 1}
-    need = {**cs.PAIR_OPS, **cs.PAIR_OPS_V2}
-    assert all(cs.FAST_FP32[k] >= need[k][0] for k in cs.FAST_FP32)
+    need = {**cs.PAIR_OPS, **cs.PAIR_OPS_V2, **cs.PAIR_OPS_EXP}
+    assert all(cs.FAST_FP32[k] >= need[k][0] - cs.PAIR_SELECTS.get(k, 0)
+               for k in cs.FAST_FP32)
 
 
 def test_sass_changed_names_the_functions_that_differ():
