@@ -1,14 +1,16 @@
-// The asynchronous copies of the executors (pairs.cuh). K10 and K11: one
+// The asynchronous copies of the executors (pairs.cuh), of K4 and K4-f64
+// and of their split reduction (direct.cuh, fp64.cuh). K10 and K11: one
 // thread starts a 1D bulk copy (Hopper's copy engine, cp.async.bulk) of
 // contiguous global memory into shared memory, and the copy reports its
 // bytes to an mbarrier in shared memory that the readers wait on. The
-// K1/K2 and K8/K9 tile (and K4, direct.cuh; K1-f64, fp64.cuh, a double a
-// copy): every thread copies single floats with cp.async (4 bytes, so a
-// copy can transpose a block into its staged layout), commits them as
-// one group per staged block and waits until at most N groups are
-// pending. Nothing else lives here: the host
-// emulation of the sources (tests/test_torch_csrc_host.py) swaps this one
-// header for a synchronous version.
+// K1/K2 and K8/K9 tile (and K4, direct.cuh; K1-f64 and K4-f64, fp64.cuh,
+// a double a copy): every thread copies single floats with cp.async (4
+// bytes, so a copy can transpose a block into its staged layout),
+// commits them as one group per staged block and waits until at most N
+// groups are pending; the split reduction copies 16 bytes a cp.async.
+// Nothing else lives here: the host emulation of the sources
+// (tests/test_torch_csrc_host.py) swaps this one header for a
+// synchronous version.
 //
 // Contract: addresses and sizes are multiples of 16 bytes; each mbarrier
 // is initialised with an arrival count of 1, and each use of it is one
@@ -81,13 +83,32 @@ __device__ __forceinline__ void copy4_async(float* dst_smem,
 }
 
 // One double from global to shared memory, asynchronously (LDGSTS.64;
-// K1-f64, fp64.cuh).
+// K1-f64 and K4-f64, fp64.cuh).
 __device__ __forceinline__ void copy8_async(double* dst_smem,
                                             const double* src_gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                    smem_u32(dst_smem)),
                "l"(src_gmem)
                : "memory");
+}
+
+// kBytes (4, 8 or 16) from global to shared memory, asynchronously, both
+// addresses aligned to kBytes (the split reduction, direct.cuh); 16
+// bytes bypass L1 (LDGSTS.128 .cg: the slabs are read once).
+template <int kBytes>
+__device__ __forceinline__ void copy_bytes_async(void* dst_smem,
+                                                 const void* src_gmem) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst_smem)),
+                 "l"(src_gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst_smem)),
+                 "l"(src_gmem), "n"(kBytes)
+                 : "memory");
+  }
 }
 
 // Closes this thread's copies started since the last commit into a group.

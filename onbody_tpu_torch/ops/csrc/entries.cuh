@@ -4,7 +4,8 @@
 //   onbody_direct_<INST>   K4, the direct sum over one split of the
 //                          sources per CTA (direct.cuh)
 //   onbody_direct_reduce_<INST>  K4's ordered reduction of the splits'
-//                                partial sums
+//                                partial sums (direct.cuh split_reduce
+//                                on floats)
 //   onbody_exec_pre_seg_<INST>     K8's segment kernel: the unpaired
 //                                  executor on pre-gathered sources, one
 //                                  CTA per segment of a run (pairs.cuh)
@@ -26,7 +27,10 @@
 //   onbody_exec64_<INST>   K1-f64, K1 on double rows and sums (fp64.cuh),
 //                          K1's arguments over doubles
 //   onbody_direct64_<INST>         K4-f64, K4 in double (fp64.cuh)
+//   onbody_direct64_tile_<INST>    K4-f64's targets a CTA (its split
+//                                  planner's tile)
 //   onbody_direct64_reduce_<INST>  K4-f64's ordered reduction
+//                                  (split_reduce on doubles)
 // The occupancy entry also reports K1-f64 (kind 7) and K4-f64 (kind 8).
 // An instantiation is a (workload, core): BODY its fp32 body, BODY64 the
 // same body in double (body64.cuh).
@@ -52,7 +56,8 @@ template <class Body64>
 int occupancy64(int kind, int B, int* info) {
   if (kind == 8) {
     return occupancy_of((const void*)direct64_kernel<Body64>,
-                        kDirect64Threads, direct64_smem<Body64>(), 1, info);
+                        Direct64Tile<Body64>::kThreads,
+                        direct64_smem<Body64>(), kDirect64Stages, info);
   }
   int threads, grid_y;
   size_t smem;
@@ -153,8 +158,8 @@ int occupancy64(int kind, int B, int* info) {
   extern "C" int onbody_direct_reduce_##INST(float* out,                   \
                                              const float* partials, int M, \
                                              int splits, void* stream) {   \
-    return onbody::launch_direct_reduce<BODY>(out, partials, M, splits,    \
-                                              stream);                     \
+    return onbody::launch_split_reduce<float, BODY::kOut>(                 \
+        out, partials, M, splits, stream);                                 \
   }                                                                        \
   extern "C" int onbody_direct_occupancy_##INST(int* info) {               \
     return onbody::occupancy_of((const void*)onbody::direct_kernel<BODY>,  \
@@ -178,10 +183,14 @@ int occupancy64(int kind, int B, int* info) {
     return onbody::launch_direct64<BODY64>(tgt, src, dst, M, S, splits,    \
                                            stream);                        \
   }                                                                        \
+  extern "C" int onbody_direct64_tile_##INST() {                          \
+    return onbody::Direct64Tile<BODY64>::kThreads *                       \
+           onbody::Direct64Tile<BODY64>::kTgts;                            \
+  }                                                                        \
   extern "C" int onbody_direct64_reduce_##INST(double* out,                \
                                                const double* partials,     \
                                                int M, int splits,          \
                                                void* stream) {             \
-    return onbody::launch_direct64_reduce<BODY64>(out, partials, M,        \
-                                                  splits, stream);         \
+    return onbody::launch_split_reduce<double, BODY64::kOut>(              \
+        out, partials, M, splits, stream);                                 \
   }

@@ -1,8 +1,8 @@
 // The fp64 executors of the accuracy tier, templated on a double body
 // (body64.cuh): K1-f64, the grouped executor fetching source blocks by
 // id (exec64_runs), and K4-f64, the direct sum over target tiles x
-// source splits (direct64_kernel) with its ordered reduction
-// (direct64_reduce).
+// source splits (direct64_kernel), whose splits direct.cuh's
+// split_reduce adds in split order.
 //
 // They replace the jnp forms the reference runs at accum_dtype=float64:
 // onbody_tpu/traverse/exec.py:exec_pairs_jnp, to which every fetch is
@@ -27,22 +27,20 @@
 // cp.async ring of kExec64Stages blocks copied a double at a time
 // (async_copy.cuh copy8_async), so the next block lands while the
 // current one is summed. The pairs take the RM core's double rsqrt and
-// reciprocal as one MUFU and Newton's steps (body64.cuh MufuF64,
-// mufu.cuh), with no range check and no slow-path call. CTAs of at most
+// reciprocal as one MUFU and Newton's steps (body64.cuh, mufu.cuh), with
+// no range check and no slow-path call. CTAs of at most
 // kExec64Threads threads (a row of B 256 is one CTA of 128). A block's
 // pairs take far longer than its copy, so two stages hide it, and
 // against three they take a third less shared memory, so more CTAs fit
 // an SM (vort3d's 6, not 4).
-// K4-f64 is the simple design: one CTA per (target tile, split), two
-// targets a thread, each chunk staged synchronously as kRows double rows,
-// the library's rsqrt and division (IeeeF64).
+// K4-f64 is K4's grid and ring on K1-f64's pair loop (below).
 //
 // No atomics and no warp-level code, so the host emulation
 // (tests/test_torch_csrc_host.py, which swaps async_copy.cuh for
 // synchronous copies) checks them as it checks the fp32 kernels. The
 // order of sums is the fp32 kernels': per target a block's (chunk's)
 // partial in source order, partials added in block order, K4-f64's
-// splits added in split order by the reduction, so two calls agree bit
+// splits added in split order by split_reduce, so two calls agree bit
 // for bit, and K1-f64 at a list's static capacity gives the trimmed
 // launch's bits.
 #pragma once
@@ -103,7 +101,7 @@ __device__ __forceinline__ void block64(const double* __restrict__ sm, int n,
     const typename Body::Src s = Body::load_src(v, 1);
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
-      Body::template pair<MufuF64>(s, t[k], part[k]);
+      Body::pair(s, t[k], part[k]);
     }
   }
 #pragma unroll
@@ -221,117 +219,158 @@ int launch_exec64(const double* tgt_geo, const double* src_fm, double* out,
   return (int)cudaGetLastError();
 }
 
-// K4-f64: K4's grid and split plan (direct.cuh: target tiles of
-// kDirect64Tile x source splits of whole chunks of kDirect64Chunk, split
-// fastest; ops/cuda_direct.py plan_splits), two targets per thread,
-// each chunk staged synchronously as kRows double rows. Inputs targets
-// (PD+1, M) and sources (C, S) feature-major in double; output (M, OD),
-// or with splits the scratch (splits, M, OD) that direct64_reduce sums.
-constexpr int kDirect64Threads = 256;
-constexpr int kDirect64Tgts = 2;
-constexpr int kDirect64Tile = kDirect64Threads * kDirect64Tgts;
-constexpr int kDirect64Chunk = 512;
+// K4-f64: K4 (direct.cuh direct_kernel) carried into double. K4's grid
+// and split plan (target tiles of kThreads x kTgts x source splits of
+// whole chunks of kChunk, split fastest; ops/cuda_direct.py plan_splits,
+// splits_for(..., "direct64")); K1-f64's pair loop: each thread owns kTgts
+// targets (i, i + blockDim.x, ... of its tile), the chunk is staged
+// source by source in the aos64 layout and summed by block64 (LDS.128
+// broadcasts, each read serving all of a thread's targets); the chunks
+// come through a cp.async ring of kDirect64Stages, a double a copy (the
+// copy transposes the feature-major rows), so chunk f + 1 lands while
+// chunk f is summed; a body whose staged rows differ rewrites them after
+// the copy lands, as exec64_runs does. Inputs targets (PD+1, M) and
+// sources (C, S) feature-major in double; output (M, OD), or with splits
+// the scratch (splits, M, OD) that split_reduce (direct.cuh) sums in
+// split order.
+//
+// What held the first form back, and what this one does: a chunk
+// staged synchronously as kRows double rows (a barrier, the loads, a
+// barrier, then the pairs; kRows scalar shared loads a source), the
+// library's rsqrt (a range check and a slow-path call a pair) and
+// division (5 DFMA and a call), sr^2 added after |d|^2, and 8 bytes of
+// spill in grav3d. Now the ring overlaps the copies with the pairs, a
+// source is aos64 / 2 broadcast loads, the RM core is one MUFU and
+// Newton's DFMA with the radii in the FMA chain (body64.cuh). The tile
+// (Direct64Tile, by body) was measured at 128 and 256 threads, one and
+// two targets a thread and 256 and 512 sources a chunk
+// (scripts/k4_sweep.py; PERF.md, the K4-f64 redesign): 256 sources
+// (512 cost the vortex bodies resident CTAs); two targets a thread of 256
+// for the RM bodies but vort2d's, which spills 16 bytes at 256 threads
+// and takes 128; one target a thread of 256 for the exp and v2 cores,
+// whose library calls hold twice the accumulators' registers at two (162
+// registers, one CTA an SM, for vortgrad3d).
+constexpr int kDirect64Chunk = 256;
+constexpr int kDirect64Stages = 2;
 
+// A K4-f64 tile: threads a CTA, targets a thread, sources a chunk
+template <int kThreads_, int kTgts_, int kChunk_ = kDirect64Chunk>
+struct Direct64TileOf {
+  static constexpr int kThreads = kThreads_;
+  static constexpr int kTgts = kTgts_;
+  static constexpr int kChunk = kChunk_;
+};
+
+// The tile of each body (the library reports its targets a CTA to the
+// wrapper's split planner: onbody_direct64_tile_<INST>)
 template <class Body>
+struct Direct64Tile : Direct64TileOf<256, 2> {};
+template <>
+struct Direct64Tile<Vort2dF64<CoreRmF64>> : Direct64TileOf<128, 2> {};
+template <template <class> class B>
+struct Direct64Tile<B<CoreExpF64>> : Direct64TileOf<256, 1> {};
+template <template <class> class B>
+struct Direct64Tile<B<CoreV2F64>> : Direct64TileOf<256, 1> {};
+
+// Dynamic shared memory of a K4-f64 launch: the ring of staged chunks.
+template <class Body, class Tile = Direct64Tile<Body>>
 constexpr size_t direct64_smem() {
-  return sizeof(double) * Body::kRows * kDirect64Chunk;
+  return sizeof(double) * kDirect64Stages * Tile::kChunk * aos64<Body>();
 }
 
-template <class Body>
-__global__ void __launch_bounds__(kDirect64Threads)
+template <class Body, class Tile = Direct64Tile<Body>>
+__global__ void __launch_bounds__(Tile::kThreads)
     direct64_kernel(const double* __restrict__ tgt,
                     const double* __restrict__ src,
                     double* __restrict__ dst, int M, int S, int splits) {
+  constexpr int kAos = aos64<Body>();
+  constexpr int kChunk = Tile::kChunk;
+  constexpr int kStage = kChunk * kAos;  // doubles of one ring stage
+  constexpr int kN = Tile::kTgts;
   extern __shared__ __align__(16) float smem_raw[];
-  double* st = reinterpret_cast<double*>(smem_raw);  // row r: st + r * chunk
+  double* ring = reinterpret_cast<double*>(smem_raw);  // kDirect64Stages
   const int split = blockIdx.x % splits;
   const int64_t tile = blockIdx.x / splits;
-  const int64_t i0 = tile * blockDim.x * kDirect64Tgts + threadIdx.x;
-  typename Body::Tgt t[kDirect64Tgts];
-  double acc[kDirect64Tgts][Body::kOut];
-  for (int k = 0; k < kDirect64Tgts; ++k) {
+  const int64_t i0 = tile * blockDim.x * kN + threadIdx.x;
+  typename Body::Tgt t[kN];
+  double acc[kN][Body::kOut];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
     const int64_t i = i0 + k * blockDim.x;
     t[k] = typename Body::Tgt{};
     if (i < M) t[k] = Body::load_tgt(tgt + i, M);
+#pragma unroll
     for (int o = 0; o < Body::kOut; ++o) acc[k][o] = 0.0;
   }
-  const int64_t chunks = ((int64_t)S + kDirect64Chunk - 1) / kDirect64Chunk;
-  const int64_t s0 = split * chunks / splits * kDirect64Chunk;
-  const int64_t s_end = (split + 1) * chunks / splits * kDirect64Chunk;
+  // split j sums chunks [j * chunks / splits, (j + 1) * chunks / splits)
+  const int64_t chunks = ((int64_t)S + kChunk - 1) / kChunk;
+  const int64_t s0 = split * chunks / splits * kChunk;
+  const int64_t s_end = (split + 1) * chunks / splits * kChunk;
   const int64_t s1 = s_end < S ? s_end : S;
-  for (int64_t c0 = s0; c0 < s1; c0 += kDirect64Chunk) {
-    const int n = s1 - c0 < kDirect64Chunk ? (int)(s1 - c0) : kDirect64Chunk;
-    __syncthreads();  // the previous chunk is read
-    for (int r = 0; r < Body::kRows; ++r) {
-      for (int q = threadIdx.x; q < n; q += blockDim.x) {
-        st[r * kDirect64Chunk + q] = Body::staged(r, src[r * S + c0 + q]);
+  const int n_chunks = s1 > s0 ? (int)((s1 - s0 + kChunk - 1) / kChunk) : 0;
+  auto chunk_len = [&](int f) {
+    const int64_t left = s1 - s0 - (int64_t)f * kChunk;
+    return left < kChunk ? (int)left : kChunk;
+  };
+  auto issue = [&](int f) {  // chunk f into stage f % kDirect64Stages
+    if (f < n_chunks) {
+      const double* c0 = src + s0 + (int64_t)f * kChunk;
+      double* st = ring + (f % kDirect64Stages) * kStage;
+      const int n = chunk_len(f);
+#pragma unroll
+      for (int r = 0; r < Body::kRows; ++r) {
+        for (int q = threadIdx.x; q < n; q += blockDim.x) {
+          copy8_async(st + q * kAos + r, c0 + (int64_t)r * S + q);
+        }
       }
     }
+    copy_commit();  // one group per chunk, empty past the end
+  };
+  for (int f = 0; f < kDirect64Stages - 1; ++f) issue(f);
+  for (int f = 0; f < n_chunks; ++f) {  // uniform across the CTA
+    issue(f + kDirect64Stages - 1);  // its stage was read in iteration f - 1
+    copy_wait<kDirect64Stages - 1>();  // chunk f has landed
     __syncthreads();
-    if (i0 >= M) continue;
-    double part[kDirect64Tgts][Body::kOut];
-    for (int k = 0; k < kDirect64Tgts; ++k) {
-      for (int o = 0; o < Body::kOut; ++o) part[k][o] = 0.0;
+    double* st = ring + (f % kDirect64Stages) * kStage;
+    const int n = chunk_len(f);
+    if (!Body::kRawStage) {  // restage the rows whose staged value differs
+      for (int q = threadIdx.x; q < n; q += blockDim.x) {
+#pragma unroll
+        for (int r = 0; r < Body::kRows; ++r) {
+          st[q * kAos + r] = Body::staged(r, st[q * kAos + r]);
+        }
+      }
+      __syncthreads();
     }
-    for (int q = 0; q < n; ++q) {
-      const typename Body::Src s = Body::load_src(st + q, kDirect64Chunk);
-      for (int k = 0; k < kDirect64Tgts; ++k) Body::pair(s, t[k], part[k]);
-    }
-    for (int k = 0; k < kDirect64Tgts; ++k) {
-      for (int o = 0; o < Body::kOut; ++o) acc[k][o] += part[k][o];
-    }
+    if (i0 < M) block64<Body, kN>(st, n, t, acc);
+    __syncthreads();  // the stage is read: it may be refilled
   }
   double* d = dst + (int64_t)split * M * Body::kOut;
-  for (int k = 0; k < kDirect64Tgts; ++k) {
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
     const int64_t i = i0 + k * blockDim.x;
     if (i >= M) continue;
+#pragma unroll
     for (int o = 0; o < Body::kOut; ++o) d[i * Body::kOut + o] = acc[k][o];
   }
 }
 
-template <class Body>
+template <class Body, class Tile = Direct64Tile<Body>>
 int launch_direct64(const double* tgt, const double* src, double* dst,
                     int M, int S, int splits, void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  const int tiles = (M + kDirect64Tile - 1) / kDirect64Tile;
-  const size_t smem = direct64_smem<Body>();
+  constexpr int kTile = Tile::kThreads * Tile::kTgts;
+  const int tiles = (M + kTile - 1) / kTile;
+  const size_t smem = direct64_smem<Body, Tile>();
+  // always: an occupancy query may have set another limit
   const cudaError_t err = cudaFuncSetAttribute(
-      direct64_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      direct64_kernel<Body, Tile>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = tiles * splits;
-  direct64_kernel<Body><<<blocks, kDirect64Threads, smem,
-                          (cudaStream_t)stream>>>(tgt, src, dst, M, S,
-                                                  splits);
-  return (int)cudaGetLastError();
-}
-
-// K4-f64's ordered reduction: out[e] = the sum over splits of
-// partials[s][e] in split order, one thread per output value. Bound by
-// bytes: the slabs read once, the output written once.
-template <class Body>
-__global__ void direct64_reduce(double* __restrict__ out,
-                                const double* __restrict__ partials, int M,
-                                int splits) {
-  const int64_t n = (int64_t)M * Body::kOut;
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  double v = partials[e];
-  for (int s = 1; s < splits; ++s) v += partials[s * n + e];
-  out[e] = v;
-}
-
-constexpr int kDirect64ReduceThreads = 256;
-
-template <class Body>
-int launch_direct64_reduce(double* out, const double* partials, int M,
-                           int splits, void* stream) {
-  if (M <= 0) return (int)cudaSuccess;
-  const int64_t n = (int64_t)M * Body::kOut;
-  const int blocks = (int)((n + kDirect64ReduceThreads - 1) /
-                           kDirect64ReduceThreads);
-  direct64_reduce<Body><<<blocks, kDirect64ReduceThreads, 0,
-                          (cudaStream_t)stream>>>(out, partials, M, splits);
+  direct64_kernel<Body, Tile><<<blocks, Tile::kThreads, smem,
+                                (cudaStream_t)stream>>>(tgt, src, dst, M, S,
+                                                        splits);
   return (int)cudaGetLastError();
 }
 

@@ -14,8 +14,10 @@ were split, an ordered reduction of the splits' partial sums
 `direct_split_torch` is the plain twin of the split path.
 
 K4-f64 (accum_dtype float64, csrc/fp64.cuh: "direct64" and
-"direct64_reduce") is K4's plan in double: the inputs promoted once
-(exact), double partials added in split order.
+"direct64_reduce") is K4's plan in double, on its own tile and chunk
+(`geometry`): the inputs promoted once (exact), double partials
+added in split order. Both reductions are one kernel
+(csrc/direct.cuh split_reduce, on floats or doubles).
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ _TILE_T_CPU = 64
 # csrc/direct.cuh's targets per CTA (kDirectThreads * kDirectTgts) and
 # sources per staged chunk (kDirectChunk)
 TILE_T, CHUNK_S = 512, 512
+# K4-f64's sources per staged chunk (csrc/fp64.cuh kDirect64Chunk); its
+# targets per CTA depend on the body, and the library reports them
+# (geometry)
+CHUNK_S64 = 256
 # waves of resident CTAs the split grid should fill
 SPLIT_WAVES = 2
 # bytes of the split partials' scratch, at most: the pregather buffer's
@@ -83,32 +89,45 @@ def direct_torch(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
 
 # ------------------------------------------------------------ the split plan
 
-def split_bounds(s: int, splits: int):
+def split_bounds(s: int, splits: int, chunk: int = CHUNK_S):
     """The [lo, hi) source range of each of `splits` splits, in split
-    order, as K4 cuts them: split j takes the chunks of CHUNK_S sources
-    [j * C / splits, (j + 1) * C / splits) of the C = ceil(S / CHUNK_S)
-    (whole chunks, counts differing by one at most; the last chunk may
-    be short)."""
-    chunks = -(-s // CHUNK_S)
-    return [(min(s, j * chunks // splits * CHUNK_S),
-             min(s, (j + 1) * chunks // splits * CHUNK_S))
+    order, as K4 (K4-f64 at chunk CHUNK_S64) cuts them: split j takes the
+    chunks of `chunk` sources [j * C / splits, (j + 1) * C / splits) of
+    the C = ceil(S / chunk) (whole chunks, counts differing by one at
+    most; the last chunk may be short)."""
+    chunks = -(-s // chunk)
+    return [(min(s, j * chunks // splits * chunk),
+             min(s, (j + 1) * chunks // splits * chunk))
             for j in range(splits)]
 
 
 def plan_splits(m: int, s: int, od: int, ctas_per_sm: int, sms: int,
                 scratch_bytes: int = SCRATCH_BYTES,
-                itemsize: int = 4) -> int:
-    """K4's (and K4-f64's) split planner: the number of source splits for
-    M targets and S sources. The smallest count whose grid (target tiles
-    of TILE_T x splits) fills SPLIT_WAVES waves of ctas_per_sm resident
-    CTAs on `sms` SMs, at most one split per chunk and capped so that the
-    partial slabs (splits x M x OD values of itemsize bytes) fit in
-    scratch_bytes; 1 when the tiles alone fill the waves."""
-    chunks = -(-s // CHUNK_S)
-    tiles = -(-m // TILE_T)
+                itemsize: int = 4, tile: int = TILE_T,
+                chunk: int = CHUNK_S) -> int:
+    """K4's (and K4-f64's, at its geometry) split planner: the number of
+    source splits for M targets and S sources. The smallest count whose
+    grid (target tiles of `tile` x splits) fills SPLIT_WAVES waves of
+    ctas_per_sm resident CTAs on `sms` SMs, at most one split per chunk
+    of `chunk` sources and capped so that the partial slabs (splits x M x
+    OD values of itemsize bytes) fit in scratch_bytes; 1 when the tiles
+    alone fill the waves."""
+    chunks = -(-s // chunk)
+    tiles = -(-m // tile)
     want = -(-SPLIT_WAVES * sms * max(ctas_per_sm, 1) // max(tiles, 1))
     cap = scratch_bytes // (itemsize * max(m, 1) * od)
     return max(1, min(want, chunks, cap))
+
+
+@functools.cache
+def geometry(kind: str, inst: str) -> tuple:
+    """(targets per CTA, sources per chunk) of K4 (kind "direct") or of
+    instantiation inst's K4-f64 ("direct64", its tile from the library:
+    csrc/fp64.cuh Direct64Tile)."""
+    if kind == "direct":
+        return TILE_T, CHUNK_S
+    tile = getattr(cuda_lib.lib(), cuda_lib.entry("direct64_tile", inst))()
+    return int(tile), CHUNK_S64
 
 
 @functools.cache
@@ -124,16 +143,18 @@ def splits_for(kernel: Kernel, core: str, m: int, s: int, device,
                kind: str = "direct"):
     """plan_splits with the card's SMs and the resident CTAs per SM (the
     CUDA occupancy calculator) of K4 (kind "direct") or K4-f64
-    ("direct64")."""
-    ctas, sms = _resident(kind, cuda_lib.instance(kernel.name, core),
-                          device.index or 0)
+    ("direct64"), at its geometry."""
+    inst = cuda_lib.instance(kernel.name, core)
+    ctas, sms = _resident(kind, inst, device.index or 0)
+    tile, chunk = geometry(kind, inst)
     return plan_splits(m, s, kernel.od, ctas, sms,
-                       itemsize=8 if kind == "direct64" else 4)
+                       itemsize=8 if kind == "direct64" else 4, tile=tile,
+                       chunk=chunk)
 
 
 def reduce_splits_torch(partials):
-    """Plain twin of K4's reduction: the (splits, M, OD) partial slabs
-    summed in split order."""
+    """Plain twin of K4's (and K4-f64's) reduction: the (splits, M, OD)
+    partial slabs summed in split order."""
     out = partials[0].clone()
     for p in partials[1:]:
         out += p
@@ -215,9 +236,10 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
     tiles cannot fill the card, the sources are split over CTAs and the
     splits' partial sums are added in split order by a second kernel
     (csrc/direct.cuh). K4-f64 is the same plan in double
-    (csrc/fp64.cuh: one chunk staged at a time, no ring), replacing the
-    reference's fp64 direct, traverse/direct.py:direct (:65-102) at
-    accum_dtype=float64; bound by the pairs' FP64 operations."""
+    (csrc/fp64.cuh: K4's ring on K1-f64's pair loop), replacing the
+    reference's fp64 direct,
+    traverse/direct.py:direct (:65-102) at accum_dtype=float64; bound by
+    the pairs' FP64 operations."""
     devs = {t.device for t in (tx, tr, sx, sr, ss)}
     if len(devs) != 1:
         raise ValueError(f"direct: tensors on several devices {devs}")
@@ -248,7 +270,9 @@ def direct_cuda(kernel: Kernel, tx, tr, sx, sr, ss, core: str = "rm",
                             _kind("direct", accum_dtype))
     elif splits < 1:
         raise ValueError(f"direct: {splits} splits, need >= 1")
-    if -(-m // TILE_T) * splits >= 2 ** 31:
+    tile = geometry(_kind("direct", accum_dtype),
+                    cuda_lib.instance(kernel.name, core))[0]
+    if -(-m // tile) * splits >= 2 ** 31:
         raise ValueError("direct: the grid must fit in int32")
     tgt, src = layout(kernel, tx, tr, sx, sr, ss)
     if splits == 1:

@@ -94,6 +94,7 @@ _ARGTYPES = {
     "direct64_reduce": [_P] * 2 + [_I] * 2 + [_P],
     "occupancy": [_I] * 4 + [_P],
     "direct_occupancy": [_P],
+    "direct64_tile": [],
 }
 
 
@@ -181,7 +182,8 @@ def lib() -> ctypes.CDLL:
     build()
     so = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
     for inst in INSTANCES:
-        for kind in KINDS + ("occupancy", "direct_occupancy"):
+        for kind in KINDS + ("occupancy", "direct_occupancy",
+                             "direct64_tile"):
             fn = getattr(so, entry(kind, inst))
             fn.argtypes = _ARGTYPES[kind]
             fn.restype = ctypes.c_int

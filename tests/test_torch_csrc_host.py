@@ -159,12 +159,27 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 inline void copy4_async(float* dst, const float* src) { *dst = *src; }
 inline void copy8_async(double* dst, const double* src) { *dst = *src; }
+template <int kBytes> inline void copy_bytes_async(void* dst, const void* src) {
+  memcpy(dst, src, kBytes);
+}
 inline void copy_commit() {}
 template <int kPending> inline void copy_wait() {}
 }  // namespace onbody
 """
 # K11's planner, exported for the test
 HOST_EXPORTS = r"""
+// the split reduction's staged pass alone (no streaming pass) with 4 KB
+// a CTA, so that a few splits take several passes
+extern "C" int host_split_reduce_staged_float(float* out, const float* p,
+                                              int n, int splits) {
+  return onbody::launch_split_reduce<float, 1, 1 << 30, 4096>(
+      out, p, n, splits, nullptr);
+}
+extern "C" int host_split_reduce_staged_double(double* out, const double* p,
+                                               int n, int splits) {
+  return onbody::launch_split_reduce<double, 1, 1 << 30, 4096>(
+      out, p, n, splits, nullptr);
+}
 extern "C" int host_copy_blocks(const int* ids, int j, int g) {
   return onbody::copy_blocks(ids, j, g);
 }
@@ -1158,15 +1173,28 @@ def test_host_exp_core_matches_reference(host_lib, which):
         np.testing.assert_allclose(g, r, rtol=2e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("m,s,splits", K4_CASES,
-                         ids=[f"{m}x{s}-{k}" for m, s, k in K4_CASES])
+# K4-f64's cases: K4's (its tile is 512 targets, 256 for vort2d's RM
+# body and the exp and v2 cores, and its chunk 256 sources, so 301 and
+# 777 leave a tile partly empty, 2500 sources make ten chunks, the last
+# short); one chunk of 200 sources, fewer than the ring's 2 stages,
+# against 257 targets (a 256-target tile and one); three chunks in 3
+# splits, each split one
+# chunk; 513 targets (a tile and one) against 5000 sources (20 chunks,
+# the last short) in 2 splits; 300 targets against 4700 sources (19
+# chunks) in 7 splits of two or three
+K4_F64_CASES = K4_CASES + [(257, 200, 1), (300, 600, 3), (513, 5000, 2),
+                           (300, 4700, 7)]
+
+
+@pytest.mark.parametrize("m,s,splits", K4_F64_CASES,
+                         ids=[f"{m}x{s}-{k}" for m, s, k in K4_F64_CASES])
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
 def test_host_k4_f64_matches_twin(host_lib, name, core, m, s, splits):
-    """K4-f64 as the wrapper runs it, on K4's cases in double: one launch
-    writing the output, or one partial slab per split (each against the
-    float64 twin on its split's sources; the scratch starts as NaN) and
-    the ordered reduction, equal to the slabs summed in split order bit
-    for bit; the whole against the twin within F64_MAX_REL."""
+    """K4-f64 as the wrapper runs it, on K4_F64_CASES in double: one
+    launch writing the output, or one partial slab per split (each
+    against the float64 twin on its split's sources; the scratch starts
+    as NaN) and the ordered reduction, equal to the slabs summed in split
+    order bit for bit; the whole against the twin within F64_MAX_REL."""
     kernel = get_kernel(name)
     g = torch.Generator().manual_seed(4)
     tx = torch.rand((m, kernel.pd), generator=g, dtype=torch.float64)
@@ -1183,7 +1211,8 @@ def test_host_k4_f64_matches_twin(host_lib, name, core, m, s, splits):
         tgt.data_ptr(), src.data_ptr(), dst.data_ptr(), m, s, splits,
         None) == 0
     if splits > 1:
-        for part, (lo, hi) in zip(dst, cuda_direct.split_bounds(s, splits)):
+        for part, (lo, hi) in zip(dst, cuda_direct.split_bounds(
+                s, splits, cuda_direct.CHUNK_S64)):
             ref = cuda_direct.direct_torch(kernel, tx, tr, sx[lo:hi],
                                            sr[lo:hi], ss[lo:hi], core)
             assert _f64_errors(part, ref) <= F64_MAX_REL, (lo, hi)
@@ -1192,3 +1221,68 @@ def test_host_k4_f64_matches_twin(host_lib, name, core, m, s, splits):
         assert torch.equal(out, cuda_direct.reduce_splits_torch(dst))
     twin = cuda_direct.direct_torch(kernel, tx, tr, sx, sr, ss, core)
     assert _f64_errors(out, twin) <= F64_MAX_REL
+
+
+def test_host_direct64_tile(host_lib):
+    """K4-f64's targets a CTA, as the library reports them to the split
+    planner (cuda_direct.geometry): the RM bodies two a thread, 256
+    threads a CTA but vort2d's 128; the exp and v2 cores one a thread of
+    256."""
+    for name, core in INSTANCES:
+        fn = getattr(host_lib, cuda_lib.entry(
+            "direct64_tile", cuda_lib.instance(name, core)))
+        want = 256 if core != "rm" or name == "vort2d" else 512
+        assert fn() == want, (name, core)
+
+
+# The split reduction's shapes, (workload, M): grav3d's 777 x 3 values
+# (odd: one value a load; the staged pass, tiles of 8 values),
+# vortgrad3d's 41 x 12 (16-byte copies, tiles of one vector) and grav3d's
+# 50000 x 3 (the streaming pass: 37500 vectors of 4 floats, 75000 of 2
+# doubles; 40 splits in two rounds of 16 loads and 7 more)
+REDUCE_SHAPES = (("grav3d", 777), ("vortgrad3d", 41), ("grav3d", 50000))
+
+
+@pytest.mark.parametrize("splits", list(range(1, 10)) + [40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float", "double"])
+def test_host_split_reduce_matches_twin(host_lib, dtype, splits):
+    """The ordered split reduction (csrc/direct.cuh split_reduce and
+    split_reduce_stream, K4's entry on floats, K4-f64's on doubles) at
+    REDUCE_SHAPES, 1-9 splits and 40: the slabs summed in split order,
+    bit for bit reduce_splits_torch; the output starts as NaN, so a value
+    it should have written and did not shows."""
+    kind = "direct64_reduce" if dtype == torch.float64 else "direct_reduce"
+    g = torch.Generator().manual_seed(splits)
+    for name, m in REDUCE_SHAPES:
+        od = get_kernel(name).od
+        partials = torch.randn((splits, m, od), generator=g, dtype=dtype)
+        partials *= torch.logspace(-3, 3, m * od, dtype=dtype).view(m, od)
+        out = torch.full((m, od), float("nan"), dtype=dtype)
+        assert _entry(host_lib, kind, name, "rm")(
+            out.data_ptr(), partials.data_ptr(), m, splits, None) == 0
+        twin = cuda_direct.reduce_splits_torch(partials)
+        assert torch.equal(out, twin), (name, m)
+        assert out.view(torch.int32 if dtype == torch.float32
+                        else torch.int64).equal(
+            twin.view(torch.int32 if dtype == torch.float32
+                      else torch.int64)), (name, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float", "double"])
+def test_host_split_reduce_passes_match_twin(host_lib, dtype):
+    """The staged pass alone with 4 KB a CTA (host_split_reduce_staged_*):
+    tiles of 512 floats or 256 doubles, two splits a pass, so 3, 9 and 40
+    splits take 2, 5 and 20 passes with the running sums in shared
+    memory; bit for bit reduce_splits_torch."""
+    ty = "double" if dtype == torch.float64 else "float"
+    fn = getattr(host_lib, f"host_split_reduce_staged_{ty}")
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    g = torch.Generator().manual_seed(40)
+    n = 150000
+    for splits in (3, 9, 40):
+        partials = torch.randn((splits, n), generator=g, dtype=dtype)
+        out = torch.full((n,), float("nan"), dtype=dtype)
+        assert fn(out.data_ptr(), partials.data_ptr(), n, splits) == 0
+        assert torch.equal(out, cuda_direct.reduce_splits_torch(partials))

@@ -1216,12 +1216,14 @@ def test_k1_f64_matches_twin(dev, name, core, case):
     assert torch.equal(capped, got)
 
 
-@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
 @pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
 def test_k4_f64_matches_twin_and_oracle(dev, name, core, splits):
-    """K4-f64 (direct at accum_dtype float64) at one split and at 3 plus
-    the reduction: the float64 twin within F64_MAX_REL, the fp64 oracle,
-    two calls bit identical, its launches."""
+    """K4-f64 (direct at accum_dtype float64) at one split and at 2, 3 and
+    7 plus the reduction (1500 targets, whole tiles and a partial one;
+    9000 sources, 36 chunks, so 7 splits of five or six): the
+    float64 twin within F64_MAX_REL, the fp64 oracle, two calls bit
+    identical, its launches."""
     kernel = get_kernel(name)
     sx, sr, ss, tx, tr = kernel_inputs(kernel, 7, 9000, 1500)
     args = [torch.from_numpy(a) for a in (tx, tr, sx, sr, ss)]
@@ -1246,6 +1248,65 @@ def test_k4_f64_matches_twin_and_oracle(dev, name, core, splits):
     orc = direct.direct_oracle(kernel, torch_parts(sx, sr, ss),
                                torch_parts(tx, tr), core=core)
     assert _f64_rel(got, orc) <= F64_MAX_REL
+
+
+# (M, S, splits) of K4-f64 beside the test above: one chunk of 200
+# sources (fewer than the ring's 2 stages) against 257 targets (a
+# 256-target tile and one); three chunks in 3 splits of one; 513 targets
+# (a tile and one) against 5000 sources in 2 splits
+K4_F64_EDGES = [(257, 200, 1), (300, 600, 3), (513, 5000, 2)]
+
+
+@pytest.mark.parametrize("m,s,splits", K4_F64_EDGES,
+                         ids=[f"{m}x{s}-{k}" for m, s, k in K4_F64_EDGES])
+@pytest.mark.parametrize("name,core", INSTANCES, ids=IDS)
+def test_k4_f64_edges_match_twin(dev, name, core, m, s, splits):
+    """K4-f64 at K4_F64_EDGES: the float64 twin within F64_MAX_REL."""
+    kernel = get_kernel(name)
+    sx, sr, ss, tx, tr = kernel_inputs(kernel, 8, s, m)
+    args = [torch.from_numpy(a).double() for a in (tx, tr, sx, sr, ss)]
+    if not kernel.uses_tr:
+        args[1] = torch.zeros_like(args[1])
+    got = cuda_direct.direct_cuda(kernel, *(a.to(dev) for a in args), core,
+                                  splits=splits,
+                                  accum_dtype=torch.float64)
+    twin = cuda_direct.direct_torch(kernel, *args, core)
+    assert _f64_rel(got, twin) <= F64_MAX_REL
+
+
+# the split reduction's shapes on the card, (workload, M): the host
+# test's (test_torch_csrc_host.py REDUCE_SHAPES); the staged pass on
+# grav3d's 10000 x 3 (doubles: tiles of 64, 128 splits a pass, so 132
+# splits take two) and 20000 x 3 (floats: tiles of 128, the same); the
+# streaming pass on 200000 x 3 and on the 1e6 checks' 5e5 targets of
+# vort2d (1e6 values)
+REDUCE_SHAPES = (("grav3d", 777), ("vortgrad3d", 41), ("grav3d", 10000),
+                 ("grav3d", 20000), ("grav3d", 50000), ("grav3d", 200000),
+                 ("vort2d", 500000))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 9, 132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float", "double"])
+def test_split_reduce_matches_twin_on_card(dev, dtype, splits):
+    """K4's and K4-f64's ordered split reduction (reduce_splits_cuda) on
+    the card at REDUCE_SHAPES: bit for bit reduce_splits_torch, one
+    launch each."""
+    g = torch.Generator(device=dev).manual_seed(splits)
+    for name, m in REDUCE_SHAPES:
+        kernel = get_kernel(name)
+        partials = torch.randn((splits, m, kernel.od), generator=g,
+                               dtype=dtype, device=dev)
+        out = torch.full((m, kernel.od), float("nan"), dtype=dtype,
+                         device=dev)
+        kind = ("direct64_reduce" if dtype == torch.float64
+                else "direct_reduce")
+        before = cuda_direct.LAUNCHES[(kind, cuda_lib.instance(name, "rm"))]
+        cuda_direct.reduce_splits_cuda(kernel, "rm", out, partials)
+        torch.cuda.synchronize()
+        assert cuda_direct.LAUNCHES[(kind, cuda_lib.instance(
+            name, "rm"))] == before + 1
+        assert torch.equal(out, cuda_direct.reduce_splits_torch(partials))
 
 
 @pytest.mark.parametrize("name", WORKLOADS)

@@ -102,6 +102,18 @@ def test_constants_follow_direct_cuh():
     assert cuda_direct.CHUNK_S == const["kDirectChunk"]
 
 
+def test_constants_follow_fp64_cuh():
+    """K4-f64's chunk is fp64.cuh's; its tile comes from the library
+    (test_torch_csrc_host.py checks that entry); K4's geometry is its
+    constants."""
+    text = (cuda_lib.CSRC / "fp64.cuh").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kDirect64\w+) = (\d+);", text)}
+    assert cuda_direct.CHUNK_S64 == const["kDirect64Chunk"]
+    assert cuda_direct.geometry("direct", "grav3d") == (
+        cuda_direct.TILE_T, cuda_direct.CHUNK_S)
+
+
 # (workload, core) of every compiled instantiation
 INSTANCES = list(cuda_lib.INSTANCE_CORES)
 

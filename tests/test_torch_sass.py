@@ -261,10 +261,18 @@ def test_f64_and_v2_bounds():
     assert cs.bound_name("vort3d", "v2") == "vort3d_v2"
     assert cs.bound_name("vort2d", f64=True) == "vort2d_f64"
     assert cs.bound_name("grav3d") == "grav3d"
-    # the exp core's counts; the fp64 exp and v2 cores are not counted
+    # the exp core's counts; the fp64 exp and v2 cores' (PAIR_OPS64_CORES)
     assert cs.bound_name("vortgrad3d", "exp") == "vortgrad3d_exp"
-    assert cs.bound_name("vort3d", "exp", f64=True) is None
-    assert cs.bound_name("vort3d", "v2", f64=True) is None
+    assert cs.bound_name("vort3d", "exp", f64=True) == "vort3d_exp_f64"
+    assert cs.bound_name("vort3d", "v2", f64=True) == "vort3d_v2_f64"
+    assert cs.bound_name("vort2d", "v2", f64=True) is None
+    t, pipe = cs.bound_s(1e12, "vortgrad3d_exp_f64", 2e9)
+    assert pipe == "fp64"
+    assert t == pytest.approx(1e12 * 70 / (132 * 64 * 2e9))
+    # every fp64 instantiation of an exp or v2 core has a bound
+    assert {f"{k}_{c}" for k, c in cs.cuda_lib.INSTANCE_CORES
+            if c != "rm"} == set(cs.PAIR_OPS64_CORES) == set(
+        cs.SASS_BODY64_CORES)
     t, pipe = cs.bound_s(1e12, "vort3d_exp", 2e9)
     assert pipe == "fp32"
     assert t == pytest.approx(1e12 * 29 / (132 * 128 * 2e9))
@@ -272,6 +280,27 @@ def test_f64_and_v2_bounds():
     t, pipe = cs.bound_s(1e12, "vort2d_exp", 2e9)
     assert pipe == "mufu"
     assert t == pytest.approx(1e12 * 3 / (132 * 16 * 2e9))
+
+
+def test_f64_core_ops_match_body_header():
+    """The fp64 exp and v2 cores' bounds count the pair's arithmetic plus
+    the cheapest forms of the double operations it calls (F64_FUNCS), as
+    body64.cuh's header lists them, and stay below what the library's
+    forms issue (LIBRARY_OPS64_CORES)."""
+    text = (CSRC / "body64.cuh").read_text()
+    m = re.search(r"//\s+vort3d exp (\d+), vortgrad3d exp (\d+), vort2d exp "
+                  r"(\d+), vort3d v2 (\d+)\s*//\s*FP64-pipe operations and "
+                  r"(\d+), (\d+), (\d+), (\d+) MUFU", text)
+    assert m is not None
+    keys = ("vort3d_exp", "vortgrad3d_exp", "vort2d_exp", "vort3d_v2")
+    got = [int(g) for g in m.groups()]
+    assert {k: (got[i], got[4 + i]) for i, k in enumerate(keys)} \
+        == cs.PAIR_OPS64_CORES
+    assert cs.F64_FUNCS["sqrt"][0] == cs.F64_FUNCS["rsqrt"][0] + 1
+    assert cs.F64_FUNCS["div"][0] == cs.F64_FUNCS["rcp"][0] + 1
+    assert set(cs.LIBRARY_OPS64_CORES) == set(cs.PAIR_OPS64_CORES)
+    for k, (ops, _) in cs.PAIR_OPS64_CORES.items():
+        assert ops < cs.LIBRARY_OPS64_CORES[k]
 
 
 def test_per_pair_counts_fp64_and_v2_loops():
@@ -337,7 +366,8 @@ FAST_BODIES = {"vort2d": ("6Vort2dINS_6CoreRmEE",
                   for k, n, f, sel in (("vort3d", "6Vort3d", 24, 5),
                                        ("vortgrad3d", "10Vortgrad3d", 50, 6),
                                        ("vort2d", "6Vort2d", 17, 4))}}
-# K1-f64's RM pair loops: their FP64 work and the MUFU once a pair
+# K1-f64's and K4-f64's RM pair loops: their FP64 work and the MUFU once
+# a pair
 FAST_F64 = {"grav3d": ("9Grav3dF64E", "MUFU.RSQ64H", 17),
             "vort3d": ("9Vort3dF64INS_9CoreRmF64EEE", "MUFU.RSQ64H", 22),
             "vortgrad3d": ("13Vortgrad3dF64INS_9CoreRmF64EEE",
@@ -356,9 +386,10 @@ def _fast_function(name: str, loop) -> list:
 
 def _fast_listing(slow=()) -> str:
     """One function per pair-loop template (SASS_KIND) of K5, K6-v2 and
-    the exp cores, and K1-f64 of each RM body, as cuobjdump prints them,
-    each a loop of one pair; the (template fragments, key) pairs in
-    `slow` carry SLOW_PATH in their loop."""
+    the exp cores, and K1-f64 and K4-f64 of each RM body, as cuobjdump
+    prints them, each a loop of one pair; the (template fragments, key)
+    pairs in `slow` (("exec64" or "direct64", workload) for the fp64
+    kernels) carry SLOW_PATH in their loop."""
     out = ["\tcode for sm_90a"]
     for frag in sorted(set(cs.SASS_KIND.values())):
         for key, (body, ops) in FAST_BODIES.items():
@@ -368,30 +399,35 @@ def _fast_listing(slow=()) -> str:
                                   "EvPKfS3_Pfii", loop)
     for name, (body, sig, n) in FAST_F64.items():
         loop = ["DFMA R4, R2, R2, R4"] * n + [f"{sig} R5, R4"]
-        loop += SLOW_PATH if ("exec64", name) in slow else []
-        out += _fast_function(f"_ZN6onbody11exec64_runsINS_{body}EEvPKdS3_"
-                              "PdPKiS6_S6_S6_iiii", loop)
+        out += _fast_function(
+            f"_ZN6onbody11exec64_runsINS_{body}EEvPKdS3_PdPKiS6_S6_S6_iiii",
+            loop + (SLOW_PATH if ("exec64", name) in slow else []))
+        out += _fast_function(
+            f"_ZN6onbody15direct64_kernelINS_{body}ELi128ELi512EEEvPKdS3_"
+            "Pdiii", loop + (SLOW_PATH if ("direct64", name) in slow
+                             else []))
     return "\n".join(out) + "\n"
 
 
 def test_fast_cores_pair_loops_have_no_slow_path():
     """sass_fast / check_fast: every pair loop of K5 (vort2d, RM), K6-v2
-    (vort3d, v2) and the exp cores read per kind, and K1-f64's of each RM
-    body; one with a division's slow path (a call and the jump around
-    it, beside the back edge), more FP32 a pair than FAST_FP32 (FP64
-    than PAIR_OPS64), or fewer FP32 (FP64) or compares and selects than
-    the bound counts as needed fails the check."""
+    (vort3d, v2) and the exp cores read per kind, and K1-f64's and
+    K4-f64's of each RM body; one with a division's slow path (a call and
+    the jump around it, beside the back edge), more FP32 a pair than
+    FAST_FP32 (FP64 than PAIR_OPS64), or fewer FP32 (FP64) or compares
+    and selects than the bound counts as needed fails the check."""
     fast = cs.sass_fast(cs.sass_loops(_fast_listing()))
     assert set(fast) == {(k, key) for k in cs.SASS_KIND
                          for key in FAST_BODIES} | {
-        ("exec64", f"{name}_f64") for name in FAST_F64}
+        (k, f"{name}_f64") for k in ("exec64", "direct64")
+        for name in FAST_F64}
     fp32 = {"vort2d": 8.0, "vort3d_v2": 17.0, "vort3d_exp": 24.0,
             "vortgrad3d_exp": 50.0, "vort2d_exp": 17.0}
     selects = {"vort2d": 0.0, "vort3d_v2": 1.0, "vort3d_exp": 5.0,
                "vortgrad3d_exp": 6.0, "vort2d_exp": 4.0}
     for (kind, key), c in fast.items():
         assert c["branches"] == {}
-        if kind == "exec64":
+        if kind in ("exec64", "direct64"):
             assert c["fp64"] == FAST_F64[key[:-4]][2] and c["mufu"] == 1.0
             continue
         # K6-v2's guard is an FMNMX, not an FP32 instruction
@@ -404,6 +440,20 @@ def test_fast_cores_pair_loops_have_no_slow_path():
                                                            "CALL": 1}
     with pytest.raises(AssertionError, match="exec64 vort2d_f64"):
         cs.check_fast(slow)
+    # K4-f64's loop: a slow path, or FP64 a pair off the count, fails
+    slow = cs.sass_fast(cs.sass_loops(_fast_listing({("direct64",
+                                                      "grav3d")})))
+    assert slow[("direct64", "grav3d_f64")]["branches"] == {"BRA": 1,
+                                                             "CALL": 1}
+    assert slow[("exec64", "grav3d_f64")]["branches"] == {}
+    with pytest.raises(AssertionError, match="direct64 grav3d_f64"):
+        cs.check_fast(slow)
+    for fp64 in (41.0, 43.0):
+        off = dict(fast)
+        off[("direct64", "vortgrad3d_f64")] = dict(
+            fast[("direct64", "vortgrad3d_f64")], fp64=fp64)
+        with pytest.raises(AssertionError, match="direct64 vortgrad3d_f64"):
+            cs.check_fast(off)
     more = dict(fast)
     more[("exec64", "grav3d_f64")] = dict(fast[("exec64", "grav3d_f64")],
                                           fp64=18.0)
@@ -474,3 +524,65 @@ def test_parent_tree_times_and_gates_only_changed_kernels(monkeypatch,
     tree.gate("exec", "grav3d", "K1", [2.0, 2.1], [1.0, 1.0])
     tree.gate("direct", "vort2d", "K4 faster", [1.0, 1.1], [1.9, 2.0])
     assert tree.slower == ["K4"]
+
+
+def test_parent_turns_take_rounds():
+    """ParentTree.turns: `rounds` rounds of parent, this, this, parent,
+    each time the median of its reps; the parent's output from its first
+    call."""
+    tree = object.__new__(cs.ParentTree)
+    calls = []
+
+    def times(name, reps, op="direct", **extra):
+        calls.append("parent")
+        return [float(len(calls))] * reps, f"out{len(calls)}", None
+
+    def mine():
+        calls.append("this")
+        return [0.5, 0.25, 0.75]
+    tree.times = times
+    p_ms, this, out = tree.turns("grav3d", "direct_reduce", mine, 3,
+                                 rounds=2)
+    assert calls == ["parent", "this", "this", "parent"] * 2
+    assert p_ms == [1.0, 4.0, 5.0, 8.0]
+    assert this == [0.5] * 4 and out == "out1"
+    assert tree.turns("grav3d", "direct", mine, 3)[0] == [9.0, 12.0]
+
+
+def test_split_reduce_sass_and_parent_gate(monkeypatch, capsys):
+    """K4's and K4-f64's reduction (split_reduce on floats or doubles, one
+    function per scalar type and vector width, not per body): found by
+    its scalar type; a parent without it, or with other code, differs,
+    so --parent times and gates it; the same code does not."""
+    def red(name, t, v, op):
+        return _fast_function(f"_ZN6onbody{name}I{t}Li{v}ELi128EEEvPT_PKS1_"
+                              "liii", [op, "LDS.128 R4, [R2]"])
+    def listing_of(stream_op):
+        return "\n".join(
+            ["\tcode for sm_90a"] + red("12split_reduce", "f", 4, "FADD R5")
+            + red("12split_reduce", "f", 1, "FADD R5")
+            + red("19split_reduce_stream", "f", 4, stream_op)
+            + red("12split_reduce", "d", 2, "DADD R6")) + "\n"
+    listing = listing_of("FADD R5")
+    floats = cs._split_reduce_sass(listing, "direct_reduce")
+    assert [f for f, _ in floats] == sorted(
+        f for f in cs._sass_functions(listing) if "IfLi" in f)
+    assert len(floats) == 3
+    assert len(cs._split_reduce_sass(listing, "direct64_reduce")) == 1
+    with pytest.raises(LookupError):
+        cs._split_reduce_sass(LISTING, "direct_reduce")
+    tree = object.__new__(cs.ParentTree)
+    tree.sass_kind, tree.untimed, tree.slower = dict(cs.SASS_KIND), set(), []
+    monkeypatch.setattr(cs, "_sass_text", lambda lib: listing)
+    for parent, differs in ((LISTING, True), (listing, False), (
+            listing.replace("DADD R6", "DMUL R6"), True)):
+        tree.sass = parent
+        assert tree.same_kernel("direct64_reduce", "grav3d") is not differs
+    # a change in the streaming pass alone is a change
+    tree.sass = listing_of("FMUL R5")
+    assert not tree.same_kernel("direct_reduce", "grav3d")
+    assert tree.same_kernel("direct64_reduce", "grav3d")
+    tree.sass = LISTING
+    assert tree.for_kernel("direct_reduce", "vort2d") is tree
+    tree.gate("direct_reduce", "vort2d", "reduce", [0.011], [0.010])
+    assert tree.slower == ["reduce"]
